@@ -40,11 +40,11 @@ def main():
 
     import polars_matmul_tpu as pmt
 
-    print(f"backend: {jax.default_backend()}")
+    print(f"device: {jax.devices()[0].device_kind}")
     rng = np.random.default_rng(42)
     n_q, n_c, dim = 1000, 10000, 256
 
-    print(f"{'case':<40} {'numpy':>9} {'pmm-tpu':>9} {'ratio':>7}")
+    print(f"{'case':<40} {'numpy':>9} {'pmm':>9} {'ratio':>7}")
     for dtype in (np.float32, np.float64):
         q = rng.standard_normal((n_q, dim)).astype(dtype)
         c = rng.standard_normal((n_c, dim)).astype(dtype)

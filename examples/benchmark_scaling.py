@@ -41,7 +41,7 @@ def main():
     ap.add_argument("--cpu", action="store_true",
                     help="virtual 8-device CPU mesh scaling structure test")
     ap.add_argument("--corpus", type=int, default=None,
-                    help="corpus rows (default: 2M on TPU, 20k on CPU)")
+                    help="corpus rows (default: 1.25M, 20k with --cpu)")
     ap.add_argument("--dim", type=int, default=768)
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--k", type=int, default=100)
@@ -63,12 +63,10 @@ def main():
     import polars_matmul_tpu as pmt
     from polars_matmul_tpu.config import SearchConfig
 
-    backend = jax.default_backend()
-    # metric prep (normalize + bf16 hi/lo split) transiently holds ~3x the
-    # corpus bytes on device, so cap the default at ~1/4 of v5e HBM
-    n_corpus = args.corpus or (20_000 if backend == "cpu" else 1_250_000)
-    print(f"backend: {backend}, corpus {n_corpus}x{args.dim} f32, "
-          f"{args.queries} queries, k={args.k}")
+    n_corpus = args.corpus or (20_000 if args.cpu else 1_250_000)
+    dev = jax.devices()[0]
+    print(f"device: {len(jax.devices())} x {dev.device_kind}, corpus "
+          f"{n_corpus}x{args.dim} f32, {args.queries} queries, k={args.k}")
 
     rng = np.random.default_rng(42)
     q = rng.standard_normal((args.queries, args.dim)).astype(np.float32)

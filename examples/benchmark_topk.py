@@ -4,8 +4,8 @@ Port of the reference's examples/benchmark_topk.py (sweep around the base
 workload 1000 queries x 10,000 corpus x 256d, k=10, f32 cosine, varying one
 axis at a time; ratio table vs a NumPy normalize+matmul+argpartition
 baseline; self-verifies correctness first — reference
-benchmark_topk.py:122-138).  Runs on whatever backend JAX selects (TPU when
-available); pass --cpu to force CPU.
+benchmark_topk.py:122-138).  Runs on whatever device JAX selects (the GPU
+when there is one); pass --cpu to force CPU.
 """
 
 import argparse
@@ -85,8 +85,8 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    print(f"backend: {jax.default_backend()}")
-    print(f"{'case':<42} {'numpy':>9} {'pmm-tpu':>9} {'ratio':>7}  (<1 = faster)")
+    print(f"device: {jax.devices()[0].device_kind}")
+    print(f"{'case':<42} {'numpy':>9} {'pmm':>9} {'ratio':>7}  (<1 = faster)")
     base = dict(n_queries=1000, n_corpus=10000, dim=256, k=10, dtype=np.float32)
     sweeps = [
         ("base 1000x10000x256 k=10 f32", {}),

@@ -3,7 +3,7 @@
 Shows the intended production loop (SURVEY.md §5 resident-corpus design):
 upload + prepare the corpus once, then serve query batches against it —
 optionally with per-request corpus filters — and read one packed result
-per batch.  Run on any backend; sizes scale down automatically off-TPU.
+per batch.  ``--small`` shrinks the corpus for a quick run on a CPU.
 """
 
 import time
@@ -21,8 +21,8 @@ import polars_matmul_tpu as pmt  # noqa: E402
 def main():
     import jax
 
-    on_tpu = jax.default_backend() == "tpu"
-    n, dim, k = (200_000, 256, 10) if on_tpu else (5_000, 64, 10)
+    small = "--small" in sys.argv[1:]
+    n, dim, k = (5_000, 64, 10) if small else (200_000, 256, 10)
     batch = 512
 
     rng = np.random.default_rng(0)
@@ -30,7 +30,7 @@ def main():
     # a categorical attribute to filter on per request
     category = rng.integers(0, 8, size=n)
 
-    print(f"corpus {n}x{dim} on {jax.default_backend()}; "
+    print(f"corpus {n}x{dim} on {jax.devices()[0].device_kind}; "
           f"uploading + preparing once...")
     t0 = time.perf_counter()
     corpus = pmt.Corpus(corpus_emb)

@@ -1,14 +1,16 @@
 // Native marshaling kernels for polars-matmul-tpu.
 //
-// TPU-native analog of the reference's Rust host-side marshaling layer
-// (reference src/matmul.rs:131-286): the compute path is JAX/XLA/Pallas, but
+// Analog of the reference's Rust host-side marshaling layer
+// (reference src/matmul.rs:131-286): the compute path is JAX/XLA, but
 // ragged Arrow List columns still need a host-side gather/pack into dense
 // row-major matrices before device upload, and that pack is the hot host
 // loop for List-typed inputs (the reference's List path is 2.4x slower than
 // Array for exactly this reason, README.md:130-144).  Implemented in C++ and
 // exposed via a small C ABI consumed with ctypes (no pybind11 dependency).
 //
-// Build: g++ -O3 -march=native -shared -fPIC -o _pmm_native.so pmm_native.cpp
+// Build: polars_matmul_tpu/interop/native.py compiles this file on first use
+// (g++ -O3 -shared -fPIC, no -march) into build/native/, named by source
+// hash and host architecture; `make native` does the same.
 #include <cmath>
 #include <cstdint>
 #include <cstring>

@@ -1,18 +1,18 @@
-"""polars-matmul-tpu: TPU-native similarity search for Polars/Arrow.
+"""polars-matmul-tpu: accelerator similarity search for Polars/Arrow.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-``polars-matmul`` (the Rust/faer Polars plugin; structural analysis in
-SURVEY.md): dense query x corpus ``matmul`` and fused ``topk`` similarity
-search (cosine / dot / euclidean) as Polars expressions, plus what the
-reference never had — a Pallas MXU kernel whose epilogue fuses metric
-normalization and on-chip blockwise top-k (the score matrix never touches
-HBM), a device-resident ``Corpus`` handle, and pod-slice scaling with the
-corpus sharded across a device mesh.
+A from-scratch JAX/XLA rebuild of the capabilities of ``polars-matmul``
+(the Rust/faer Polars plugin; structural analysis in SURVEY.md): dense
+query x corpus ``matmul`` and ``topk`` similarity search (cosine / dot /
+euclidean) as Polars expressions, plus what the reference never had — a
+top-k scan that never materializes the full score matrix, quantized
+storage tiers, a device-resident ``Corpus`` handle, clustered probed
+search, and the corpus sharded across a device mesh.
 
-Importing this package registers the ``.pmm`` namespace on ``pl.Expr`` when
-polars is installed (same side-effect-on-import UX as the reference,
-SURVEY.md §3.4); without polars, the Arrow (``topk_arrow``/``matmul_arrow``)
-and NumPy (``topk``/``matmul``/``Corpus``) APIs are fully functional.
+Importing needs only JAX and NumPy.  The ``.pmm`` namespace is registered
+on ``pl.Expr`` when polars is installed (same side-effect-on-import UX as
+the reference, SURVEY.md §3.4); the Arrow functions (``topk_arrow``/
+``matmul_arrow``) need pyarrow and import it when called; the NumPy
+(``topk``/``matmul``/``Corpus``) APIs need neither.
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ from .kernels.fused_topk import fused_topk as topk_jax  # noqa: E402
 from .kernels.matmul import pairwise_matmul as matmul_jax  # noqa: E402
 from .api.arrow_ops import matmul_arrow, topk_arrow  # noqa: E402
 from .parallel.mesh import init_distributed, make_mesh  # noqa: E402
-from .utils.autotune import autotune  # noqa: E402
 from .parallel.sharded import (  # noqa: E402
     ShardedCorpus,
     distributed_matmul,
@@ -48,7 +47,6 @@ from .parallel.sharded import (  # noqa: E402
 __all__ = [
     "ClusteredCorpus",
     "Corpus",
-    "autotune",
     "Metric",
     "SearchConfig",
     "ShardedCorpus",

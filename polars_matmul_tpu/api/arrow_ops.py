@@ -11,6 +11,9 @@ Behavioural parity with the reference orchestrators
 - both-f32 rule for compute dtype
 - k clamped to corpus size
 - top-k scores always widened to f64
+
+pyarrow is imported when one of these functions is called, so the
+package imports without it.
 """
 
 from __future__ import annotations
@@ -18,15 +21,22 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import numpy as np
-import pyarrow as pa
 
 from ..config import SearchConfig
-from ..interop import arrow as ai
 from ..ops.metrics import Metric
 from . import search
 
 
-def _as_array(col: Union[pa.Array, pa.ChunkedArray]) -> pa.Array:
+def _arrow():
+    """(pyarrow, interop.arrow); raises a clear ImportError without
+    pyarrow."""
+    from ..interop import arrow as ai
+
+    return ai.pa, ai
+
+
+def _as_array(col: "Union[pa.Array, pa.ChunkedArray]") -> "pa.Array":
+    pa, _ = _arrow()
     if isinstance(col, pa.ChunkedArray):
         return col.combine_chunks()
     return col
@@ -35,21 +45,22 @@ def _as_array(col: Union[pa.Array, pa.ChunkedArray]) -> pa.Array:
 def _mask_to_np(mask):
     if mask is None:
         return None
+    pa, _ = _arrow()
     if isinstance(mask, (pa.Array, pa.ChunkedArray)):
         return np.asarray(_as_array(mask).fill_null(False)).astype(bool)
     return np.asarray(mask).astype(bool)
 
 
 def topk_arrow(
-    left: Union[pa.Array, pa.ChunkedArray],
+    left: "Union[pa.Array, pa.ChunkedArray]",
     corpus: "Union[pa.Array, pa.ChunkedArray, search.Corpus]",
     k: int,
     metric: Union[str, Metric] = "cosine",
     *,
-    mask: Union[pa.Array, pa.ChunkedArray, np.ndarray, None] = None,
+    mask: "Union[pa.Array, pa.ChunkedArray, np.ndarray, None]" = None,
     probe: Union[float, int, None] = None,
     config: Optional[SearchConfig] = None,
-) -> pa.Array:
+) -> "pa.Array":
     """Arrow List/FixedSizeList embeddings -> List[Struct{index, score}].
 
     ``corpus`` may also be a resident ``Corpus`` or ``ClusteredCorpus``
@@ -64,6 +75,7 @@ def topk_arrow(
     from ..utils.profiling import annotate
     from .clustered import ClusteredCorpus
 
+    pa, ai = _arrow()
     Metric.parse(metric)  # validate metric before touching data
     left = _as_array(left)
     clustered = isinstance(corpus, ClusteredCorpus)
@@ -105,18 +117,19 @@ def topk_arrow(
 
 
 def matmul_arrow(
-    left: Union[pa.Array, pa.ChunkedArray],
-    corpus: Union[pa.Array, pa.ChunkedArray],
+    left: "Union[pa.Array, pa.ChunkedArray]",
+    corpus: "Union[pa.Array, pa.ChunkedArray]",
     *,
     flatten: bool = False,
     config: Optional[SearchConfig] = None,
-) -> pa.Array:
+) -> "pa.Array":
     """Arrow embeddings -> FixedSizeList[n_corpus] of pairwise dot products
     (or a flat row-major column when ``flatten`` — reference
     __init__.py:177-181).  ``corpus`` may be a resident ``Corpus`` or
     ``ClusteredCorpus`` handle (original row order either way)."""
     from .clustered import ClusteredCorpus
 
+    pa, ai = _arrow()
     left = _as_array(left)
     if isinstance(corpus, (search.Corpus, ClusteredCorpus)):
         if config is not None:

@@ -1,19 +1,19 @@
 """ClusteredCorpus: device-resident clustered corpus for probed search.
 
-The scaling story past the fused kernel: big-corpus serving is HBM-
+The scaling story past the dense scan: big-corpus serving is HBM-
 bandwidth-bound (every query batch streams all N*dim corpus bytes), so
 the remaining lever is reading fewer bytes.  Quantized storage
 (``Corpus(storage=...)``) shrinks the bytes; this handle skips most of
 them — IVF-style: rows are k-means clustered at ingestion and laid out
-cluster-contiguous in whole corpus tiles, and each query batch visits
+cluster-contiguous in whole corpus tiles, and each query block visits
 only the ``probe=`` fraction of tiles ranked best by a tiny centroid
-matmul (kernels/fused_topk.py scalar-prefetch tile lists; unvisited
-tiles never leave HBM).
+matmul (kernels/fused_topk.py gathers just the listed tiles; unvisited
+tiles are never read).
 
 Search is EXACT over the visited rows; recall vs an exhaustive scan is
 controlled by ``probe`` and the clusterability of the data.
 ``probe=None`` (default) scans everything — identical results to
-``Corpus``, same kernel, and the clustered layout costs nothing but the
+``Corpus``, same scan, and the clustered layout costs nothing but the
 cluster-tail padding.
 
 The reference has no analog (single-process exhaustive scan only,
@@ -54,36 +54,10 @@ from .search import (
     compute_dtype,
 )
 
-def _fallback_fn(_tag, kk: int, metric):
-    """Jitted exhaustive-XLA fallback (cached per (k, metric): a fresh
-    closure per call would retrace and recompile every topk)."""
-    import jax
-    import jax.numpy as jnp
-
-    from ..ops import reference
-
-    big = jnp.int32(np.iinfo(np.int32).max)
-
-    @jax.jit
-    def run(qj, dense, mk, perm):
-        vals, idx = reference.topk_search(
-            qj.astype(jnp.float32), dense, kk, metric, mask=mk,
-            precision="highest")
-        safe = jnp.clip(idx, 0, perm.shape[0] - 1)
-        gidx = jnp.take(perm, safe)
-        gidx = jnp.where(gidx < 0, big, gidx)
-        # unfilled slots arrive as index sentinels — keep them (the
-        # clipped gather above would map them to a real row's id)
-        gidx = jnp.where(idx == big, big, gidx)
-        return _pack_pair(vals.astype(jnp.float32), gidx)
-
-    return run
-
-
 def _probed_fn(kk: int, metric: Metric, cfg: SearchConfig, tn: int,
                p: Optional[int], tm: int, masked: bool):
-    """One jitted dispatch: centroid probe -> fused kernel over the listed
-    tiles -> permuted-position -> original-id map-back -> packed result.
+    """One jitted dispatch: centroid probe -> scan over the listed tiles ->
+    permuted-position -> original-id map-back -> packed result.
     ``p=None`` compiles the exhaustive dense-scan variant (no probe
     stage; the slack rows are already -inf-biased in the prep)."""
     import jax
@@ -173,8 +147,6 @@ class ClusteredCorpus:
         import jax
         import jax.numpy as jnp
 
-        from ..kernels.fused_topk import corpus_tile_rows
-
         cfg = resolve(config)
         c = np.asarray(embeddings)
         if c.ndim != 2:
@@ -195,8 +167,8 @@ class ClusteredCorpus:
         self.storage = storage
         self.mesh = mesh
         self.n, self.dim = c.shape
-        self.dtype = np.dtype(np.float32)  # quantized-or-f32 kernel path
-        self._tn = corpus_tile_rows(self.dim, cfg, 1)
+        self.dtype = np.dtype(np.float32)  # quantized-or-f32 search path
+        self._tn = cfg.block_n
 
         if clusters is None:
             clusters = self._default_clusters(self.n)
@@ -211,27 +183,26 @@ class ClusteredCorpus:
         self.centroids = cent  # (clusters, dim) f32, device
         self.clusters = int(cent.shape[0])  # kmeans clamps to sample size
         codes = scales = None
-        with jax.enable_x64(False):
-            if storage in ("int8", "int4"):
-                # Quantize BEFORE assignment so the chunked assignment
-                # uploads the codes (needed anyway), not f32 chunks —
-                # host->device traffic is what ingestion waits on at
-                # corpus scale (10M x 768: 30 GB of f32 assignment
-                # chunks vs 7.7 GB of codes).  Assignment on the
-                # dequantized rows places each row where its SERVED
-                # value lives — if anything a closer fit than the exact
-                # f32 row.
-                if storage == "int8":
-                    codes, scales = _quantize_rows_np(cf)
-                else:
-                    from ..kernels.fused_topk import feature_geometry
-
-                    ck, dpp, _ = feature_geometry(self.dim)
-                    codes, scales = _quantize_rows_int4_np(cf, ck, dpp)
-                assign = assign_rows_native(codes, scales, cent, storage,
-                                            self.dim)
+        if storage in ("int8", "int4"):
+            # Quantize BEFORE assignment so the chunked assignment
+            # uploads the codes (needed anyway), not f32 chunks —
+            # host->device traffic is what ingestion waits on at
+            # corpus scale (10M x 768: 30 GB of f32 assignment
+            # chunks vs 7.7 GB of codes).  Assignment on the
+            # dequantized rows places each row where its SERVED
+            # value lives — if anything a closer fit than the exact
+            # f32 row.
+            if storage == "int8":
+                codes, scales = _quantize_rows_np(cf)
             else:
-                assign = assign_rows(cf, cent)
+                from ..kernels.fused_topk import feature_geometry
+
+                ck, dpp, _ = feature_geometry(self.dim)
+                codes, scales = _quantize_rows_int4_np(cf, ck, dpp)
+            assign = assign_rows_native(codes, scales, cent, storage,
+                                        self.dim)
+        else:
+            assign = assign_rows(cf, cent)
         self.layout: ClusterLayout = cluster_layout(
             assign, self.clusters, self._tn)
         # Dead-tile reserve for in-place growth: ``reserve_tiles`` empty
@@ -256,28 +227,25 @@ class ClusteredCorpus:
             self._tile_cluster_dev = _to_jax(self.layout.tile_cluster,
                                              np.dtype(np.int32))
             self._scales = None
-            with jax.enable_x64(False):
-                if storage in ("int8", "int4"):
-                    # Permute the codes on host (quantized above, before
-                    # assignment), then upload only the final permuted
-                    # buffer: a device-side permute holds source +
-                    # gathered copies simultaneously (2x the code bytes
-                    # — an ingestion OOM at the 10M x 768 north-star
-                    # scale, where 2 x 8.6 GB of padded codes exceeds
-                    # the 15.75 GB v5e HBM).
-                    safe = np.clip(perm, 0, self.n - 1)
-                    codes_p = codes[safe]
-                    codes_p[perm < 0] = 0
-                    scales_p = np.where(perm >= 0, scales[safe],
-                                        1.0).astype(np.float32)
-                    self._base = _to_jax(codes_p, np.dtype(np.int8))
-                    self._scales = _to_jax(scales_p, np.dtype(np.float32))
-                else:
-                    base = permute_rows(_to_jax(cf, np.dtype(np.float32)),
-                                        self._perm_dev)
-                    if storage == "bf16":
-                        base = base.astype(jnp.bfloat16)
-                    self._base = jax.block_until_ready(base)
+            if storage in ("int8", "int4"):
+                # Permute the codes on host (quantized above, before
+                # assignment), then upload only the final permuted
+                # buffer: a device-side permute holds source +
+                # gathered copies simultaneously (2x the code bytes
+                # at ingestion).
+                safe = np.clip(perm, 0, self.n - 1)
+                codes_p = codes[safe]
+                codes_p[perm < 0] = 0
+                scales_p = np.where(perm >= 0, scales[safe],
+                                    1.0).astype(np.float32)
+                self._base = _to_jax(codes_p, np.dtype(np.int8))
+                self._scales = _to_jax(scales_p, np.dtype(np.float32))
+            else:
+                base = permute_rows(_to_jax(cf, np.dtype(np.float32)),
+                                    self._perm_dev)
+                if storage == "bf16":
+                    base = base.astype(jnp.bfloat16)
+                self._base = jax.block_until_ready(base)
             self._live_dev = self._perm_dev >= 0
 
         self._prepared = {}   # (metric, precision) -> (cp, cbp)
@@ -325,17 +293,16 @@ class ClusteredCorpus:
         rng = np.random.default_rng(seed)
         sample_ids = (rng.choice(ids, sample_rows, replace=False)
                       if ids.size > sample_rows else ids)
-        with jax.enable_x64(False):
-            cent, _ = kmeans(get_rows(sample_ids), clusters,
-                             iters=kmeans_iters, seed=seed)
-            return jax.block_until_ready(cent)
+        cent, _ = kmeans(get_rows(sample_ids), clusters,
+                         iters=kmeans_iters, seed=seed)
+        return jax.block_until_ready(cent)
 
     def _gather_native_host(self):
         """Host copy of the storage-native payload + scales in the
         CURRENT permuted layout.  Mesh shards are gathered; int8 shards
-        carry kernel feature padding, trimmed here to the code width so
-        every consumer (save files, rebuild) is mesh-agnostic — the
-        install path re-derives the padding."""
+        carry feature padding to a multiple of 128, trimmed here to the
+        code width so every consumer (save files, rebuild) is
+        mesh-agnostic — the install path re-derives the padding."""
         if self.mesh is None:
             base = np.asarray(self._base)
             scales = self._scales
@@ -358,32 +325,31 @@ class ClusteredCorpus:
         self._packed_fns = {}
         self._dense = None
         self._perm_mask_dev = None
-        with jax.enable_x64(False):
-            if self.mesh is not None:
-                g = self._align_layout_for_mesh()
-                if g is not None:
-                    # re-order payload rows to the aligned+striped layout
-                    # (index len(base) selects the appended zero row)
-                    zero = np.zeros((1, base.shape[1]), base.dtype)
-                    base = np.concatenate(
-                        [np.ascontiguousarray(base), zero])[g]
-                    if scales is not None:
-                        scales = np.concatenate(
-                            [scales, np.ones(1, np.float32)])[g]
-                self._install_mesh_payload(np.ascontiguousarray(base),
-                                           scales)
-            else:
-                perm = self.layout.perm
-                self._perm_dev = _to_jax(perm, np.dtype(np.int32))
-                self._tile_cluster_dev = _to_jax(
-                    self.layout.tile_cluster, np.dtype(np.int32))
-                self._base = jax.block_until_ready(
-                    _to_jax(base, base.dtype))
-                self._scales = (None if scales is None else
-                                jax.block_until_ready(
-                                    _to_jax(scales,
-                                            np.dtype(np.float32))))
-                self._live_dev = self._perm_dev >= 0
+        if self.mesh is not None:
+            g = self._align_layout_for_mesh()
+            if g is not None:
+                # re-order payload rows to the aligned+striped layout
+                # (index len(base) selects the appended zero row)
+                zero = np.zeros((1, base.shape[1]), base.dtype)
+                base = np.concatenate(
+                    [np.ascontiguousarray(base), zero])[g]
+                if scales is not None:
+                    scales = np.concatenate(
+                        [scales, np.ones(1, np.float32)])[g]
+            self._install_mesh_payload(np.ascontiguousarray(base),
+                                       scales)
+        else:
+            perm = self.layout.perm
+            self._perm_dev = _to_jax(perm, np.dtype(np.int32))
+            self._tile_cluster_dev = _to_jax(
+                self.layout.tile_cluster, np.dtype(np.int32))
+            self._base = jax.block_until_ready(
+                _to_jax(base, base.dtype))
+            self._scales = (None if scales is None else
+                            jax.block_until_ready(
+                                _to_jax(scales,
+                                        np.dtype(np.float32))))
+            self._live_dev = self._perm_dev >= 0
 
     # -- mesh construction -------------------------------------------------
     def _align_layout_for_mesh(self):
@@ -500,8 +466,9 @@ class ClusteredCorpus:
         """Shard a PERMUTED host payload straight to the mesh (device_put
         with a NamedSharding — the full corpus is never resident on one
         chip).  Pads rows when the layout was re-aligned for a bigger
-        mesh than the payload was built for, and features to the kernel
-        width on the int8 path (where the shard data IS the prepared cp)."""
+        mesh than the payload was built for, and features to a multiple
+        of 128 on the int8 path (where the shard data IS the prepared
+        cp)."""
         import jax
         from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -574,24 +541,13 @@ class ClusteredCorpus:
         if key in self._prepared:
             return self._prepared[key]
 
-        from ..kernels.fused_topk import feature_geometry
-
-        _, dpp, _ = feature_geometry(self.dim)
-        shareable = (precision == "int4c"
-                     or (precision == "int8c"
-                         and self._base.shape[1] == dpp))
-        if shareable:
+        if precision in ("int8c", "int4c"):
             # Shared storage: the permuted code buffer IS the prepared
             # cp (int8/int4 prep never changes the codes), so only the
             # (2, rows) scale|bias operand is computed — a jitted
-            # pass-through of the codes would COPY them, and two live
-            # 8.6 GB code copies OOM a v5e at the 10M x 768 north-star
-            # scale.  Interior cluster-tail slack is killed by the live
-            # mask (n_valid=rows: the suffix rule cannot see it).
-            # int4's packed (rows, dpp/2) buffer always matches the
-            # kernel contract; int8 shares only when dim is already a
-            # multiple of 128 (else the prep's feature padding needs the
-            # copying path below — small relative cost off the 128 grid).
+            # pass-through of the codes would COPY them, doubling the
+            # resident bytes.  Interior cluster-tail slack is killed by
+            # the live mask (n_valid=rows: the suffix rule cannot see it).
             from ..kernels.fused_topk import (prepare_int4_bias,
                                               prepare_int8_bias)
 
@@ -603,17 +559,13 @@ class ClusteredCorpus:
                 bias = jnp.where(live, cbp[-1], -np.inf)[None, :]
                 return jnp.concatenate([cbp[:-1], bias], axis=0)
 
-            with jax.enable_x64(False):
-                cbp = jax.block_until_ready(jax.jit(prep_bias)(
-                    self._base, self._live_dev, self._scales))
+            cbp = jax.block_until_ready(jax.jit(prep_bias)(
+                self._base, self._live_dev, self._scales))
             self._prepared[key] = (self._base, cbp)
             return self._prepared[key]
 
-        def prep(base, live, *rest):
-            cp, cbp = prepare_corpus(
-                base, metric, tn=self._tn, precision=precision,
-                scales=rest[0] if rest else None,
-            )
+        def prep(base, live):
+            cp, cbp = prepare_corpus(base, metric, precision=precision)
             # Cluster-tail slack rows are interior (not a suffix), so the
             # prep's own tail masking does not cover them: kill them in
             # the (last) bias row.  Any finite value elsewhere is fine —
@@ -621,12 +573,8 @@ class ClusteredCorpus:
             bias = jnp.where(live, cbp[-1], -np.inf)[None, :]
             return cp, jnp.concatenate([cbp[:-1], bias], axis=0)
 
-        args = (self._base, self._live_dev)
-        if self._scales is not None:
-            args += (self._scales,)
-        with jax.enable_x64(False):
-            self._prepared[key] = jax.block_until_ready(
-                jax.jit(prep)(*args))
+        self._prepared[key] = jax.block_until_ready(
+            jax.jit(prep)(self._base, self._live_dev))
         return self._prepared[key]
 
     def _mesh_mask(self, user_mk):
@@ -722,8 +670,7 @@ class ClusteredCorpus:
         if m == 0:
             return self.n
         cf = np.ascontiguousarray(r, dtype=np.float32)
-        with jax.enable_x64(False):
-            assign = assign_rows(cf, self.centroids)
+        assign = assign_rows(cf, self.centroids)
         ids = np.arange(self.n, self.n + m, dtype=np.int64)
         if self.mesh is not None:
             n_old_padded = self.layout.perm.shape[0]
@@ -736,10 +683,8 @@ class ClusteredCorpus:
                 # no gather, no re-shard, no recompile
                 from .search import _scatter_rows_sharded
 
-                n_shards = self.mesh.shape[self.config.mesh_axes[1]]
-                with jax.enable_x64(False):
-                    _scatter_rows_sharded(self._sharded, n_shards,
-                                          self.storage, self.dim, cf, pos)
+                _scatter_rows_sharded(self._sharded, self.storage,
+                                      self.dim, cf, pos)
                 self._mesh_mask_dev = None   # the slack rows went live
                 self._perm_mask_dev = None
                 new_tc = self.layout.tile_cluster
@@ -825,13 +770,10 @@ class ClusteredCorpus:
             from .search import _scatter_rows_sharded
 
             pos = self.layout.row_pos[idx].astype(np.int64)
-            n_shards = self.mesh.shape[self.config.mesh_axes[1]]
-            with jax.enable_x64(False):
-                _scatter_rows_sharded(self._sharded, n_shards,
-                                      self.storage, self.dim, cf, pos)
+            _scatter_rows_sharded(self._sharded, self.storage, self.dim,
+                                  cf, pos)
         else:
-            with jax.enable_x64(False):
-                assign = assign_rows(cf, self.centroids)
+            assign = assign_rows(cf, self.centroids)
             self._place_and_scatter(idx.astype(np.int64), cf, assign,
                                     free_first=True)
         self._drift_rows += int(idx.size)
@@ -877,11 +819,10 @@ class ClusteredCorpus:
         fn = _cached_fn(self._packed_fns, ("scatter", ext, scales is None),
                         _scatter_fn)
         pos_d = jnp.asarray(pos, jnp.int32)
-        with jax.enable_x64(False):
-            extra = () if scales is None else (
-                self._scales, jnp.asarray(scales, jnp.float32))
-            out = jax.block_until_ready(
-                fn(self._base, pos_d, jnp.asarray(vals), *extra))
+        extra = () if scales is None else (
+            self._scales, jnp.asarray(scales, jnp.float32))
+        out = jax.block_until_ready(
+            fn(self._base, pos_d, jnp.asarray(vals), *extra))
         self._base = out[0]
         if scales is not None:
             self._scales = out[1]
@@ -1040,8 +981,7 @@ class ClusteredCorpus:
 
     def _dense_view(self):
         """(n_padded, dim) f32 dense values in PERMUTED space (slack rows
-        zero), built lazily for the non-Pallas fallback (k > max_fused_k,
-        use_pallas=False).  Costs the f32 bytes once."""
+        zero), built lazily for ``matmul``.  Costs the f32 bytes once."""
         import jax
         import jax.numpy as jnp
 
@@ -1062,21 +1002,6 @@ class ClusteredCorpus:
         return self._dense
 
     _dense = None
-
-    def _fallback_topk(self, qj, kk: int, metric: Metric,
-                       user_mk) -> Tuple[np.ndarray, np.ndarray]:
-        """Exhaustive XLA path for problems the fused kernel declines
-        (k > max_fused_k, use_pallas=False).  probe= is ignored here — the
-        result is exact, strictly better recall than any probe."""
-        dense = self._dense_view()
-        mkj = self._permuted_mask(user_mk)
-        live = self._live_dev
-        mk = live if mkj is None else (mkj & live)
-        run = _cached_fn(self._packed_fns, ("fallback", kk, metric),
-                         _fallback_fn)
-        packed = np.asarray(run(qj, dense, mk, self._perm_dev))
-        v, i = _unpack_pair(packed, kk)
-        return i.astype(np.uint32), v.astype(np.float64)
 
     # -- persistence ------------------------------------------------------
     def save(self, path) -> None:
@@ -1166,9 +1091,8 @@ class ClusteredCorpus:
         live = perm >= 0
         row_pos[perm[live]] = np.flatnonzero(live).astype(np.int32)
         self.layout = ClusterLayout(perm, row_pos, tile_cluster, counts, tn)
-        with jax.enable_x64(False):
-            self.centroids = jax.block_until_ready(
-                _to_jax(centroids, np.dtype(np.float32)))
+        self.centroids = jax.block_until_ready(
+            _to_jax(centroids, np.dtype(np.float32)))
         # before install: align reads these to undo/skip the stripe
         self._striped_for = striped_for
         self._stripe_lt = stripe_lt
@@ -1245,22 +1169,21 @@ class ClusteredCorpus:
             sample_rows, kmeans_iters, seed)
         self.centroids = cent
         self.clusters = int(cent.shape[0])  # kmeans clamps to sample size
-        with jax.enable_x64(False):
-            if self.storage in ("int8", "int4"):
-                # upload the native codes for assignment (4-8x less
-                # traffic than dequantized f32 chunks); dequant on device
-                assign = assign_rows_native(orig, orig_scales, cent,
-                                            self.storage, self.dim)
-            else:
-                assign = np.empty(n, np.int32)
-                one = make_assigner(cent)
-                chunk = 65536
-                for r0 in range(0, n, chunk):
-                    rows = slice(r0, min(r0 + chunk, n))
-                    assign[rows] = np.asarray(one(
-                        deq(orig[rows],
-                            None if orig_scales is None
-                            else orig_scales[rows])))
+        if self.storage in ("int8", "int4"):
+            # upload the native codes for assignment (4-8x less
+            # traffic than dequantized f32 chunks); dequant on device
+            assign = assign_rows_native(orig, orig_scales, cent,
+                                        self.storage, self.dim)
+        else:
+            assign = np.empty(n, np.int32)
+            one = make_assigner(cent)
+            chunk = 65536
+            for r0 in range(0, n, chunk):
+                rows = slice(r0, min(r0 + chunk, n))
+                assign[rows] = np.asarray(one(
+                    deq(orig[rows],
+                        None if orig_scales is None
+                        else orig_scales[rows])))
         self.layout = cluster_layout(assign, self.clusters, self._tn)
 
         # -- permute the NATIVE rows into the new layout ------------------
@@ -1323,8 +1246,7 @@ class ClusteredCorpus:
             dense = self._dense_view()  # permuted (n_padded, dim) f32
             cj = dense if np.dtype(dense.dtype) == dt else dense.astype(dt)
             with annotate("pmm.clustered.matmul"):
-                out = pairwise_matmul(_to_jax(q, dt), cj,
-                                      precision=self.config.precision)
+                out = pairwise_matmul(_to_jax(q, dt), cj)
                 panel = np.asarray(out)
         # Fancy indexing copies: host-owned, slack columns dropped.
         return panel[:, row_pos]
@@ -1361,8 +1283,7 @@ class ClusteredCorpus:
         exact f64 path for f64 data.  Exactness claims (``probe=None``,
         "exact over visited rows") are relative to this f32/quantized
         storage."""
-        from ..kernels.fused_topk import (max_fused_k, query_tile_rows,
-                                          supports)
+        from ..kernels.fused_topk import query_block_rows
 
         metric = Metric.parse(metric)
         q = np.asarray(queries)
@@ -1382,7 +1303,7 @@ class ClusteredCorpus:
                 np.empty((q.shape[0], 0), np.float64),
             )
         if route and probe is not None:
-            tm_r = query_tile_rows(q.shape[0], self.dim, self.config, kk)
+            tm_r = query_block_rows(q.shape[0], self.config)
             order = (self._route_order(q, metric)
                      if q.shape[0] > tm_r else None)
             if order is not None:
@@ -1395,34 +1316,17 @@ class ClusteredCorpus:
         if self.mesh is not None:
             return self._mesh_topk(q, kk, metric, probe, user_mk)
         p, exhaustive = resolve_probe(probe, self.layout.n_tiles)
-        sup = supports(q.shape, (self.n, self.dim),
-                       np.dtype(np.float32), kk, self.config)
-        if not sup and self.storage != "f32" and kk <= max_fused_k(self.config):
-            # Quantized storage above max_fused_dim: same override as
-            # Corpus.topk — the XLA path would materialize a dense f32
-            # copy, defeating the storage tier; the K-chunked kernel
-            # serves any dim from the codes directly.
-            sup = True
-        if not (self.config.use_pallas and sup):
-            # Fused kernel declines (k > k_pad, use_pallas=False, or
-            # high-dim XLA crossover on f32 storage): exhaustive exact
-            # scan — probe= is ignored (strictly better recall).
-            qj = _to_jax(q, np.dtype(np.float32))
-            with annotate(f"pmm.clustered.topk.{metric.value}"):
-                return self._fallback_topk(qj, kk, metric, user_mk)
         half_q = (q.dtype.itemsize == 2
                   and np.issubdtype(q.dtype, np.floating)
                   or str(q.dtype) == "bfloat16")
         qj = _to_jax(q, q.dtype if half_q else np.dtype(np.float32))
         cp, cbp = self._prepared_for(metric)
-        tm = query_tile_rows(q.shape[0], self.dim, self.config, kk)
+        tm = query_block_rows(q.shape[0], self.config)
         mkj = self._permuted_mask(user_mk)
         masked = mkj is not None
 
-        run_cfg = self.config
-        eff = self._effective_precision()
-        if eff != run_cfg.precision:
-            run_cfg = run_cfg.with_updates(precision=eff)
+        run_cfg = self.config.with_updates(
+            precision=self._effective_precision())
         p_key = None if exhaustive else p
         key = (kk, metric, run_cfg, self._tn, p_key, tm, masked)
         fn = _cached_fn(self._packed_fns, key, _probed_fn)

@@ -3,8 +3,9 @@
 This layer owns what the reference's ``matmul_impl`` / ``topk_impl`` own
 (src/matmul.rs:295-519): dtype dispatch (both-f32 rule), empty-input fast
 returns, dimension-mismatch errors, k clamping, and output assembly — with
-the compute dispatched to the Pallas fused kernel (TPU) or the XLA reference
-path, optionally across a device mesh.
+the compute dispatched to the XLA scan in ``kernels.fused_topk`` (f32 and
+the storage tiers) or the f64 reference path, optionally across a device
+mesh.
 """
 
 from __future__ import annotations
@@ -65,14 +66,14 @@ def matmul(
     *,
     config: Optional[SearchConfig] = None,
 ) -> np.ndarray:
-    """All pairwise dot products: (m, n) = Q . C^T.
+    """All pairwise dot products: (m, n) = Q . C^T, at full precision.
 
     dtype follows the both-f32 rule; output matches the compute dtype
-    (reference matmul_impl, matmul.rs:295-315).
+    (reference matmul_impl, matmul.rs:295-315).  ``config`` is accepted
+    for symmetry with ``topk``; the product is always exact.
     """
     from ..kernels.matmul import pairwise_matmul
 
-    cfg = resolve(config)
     q = np.asarray(queries)
     c = np.asarray(corpus)
     if q.shape[0] == 0:
@@ -82,9 +83,7 @@ def matmul(
     _validate_pair(q, c)
     dt = compute_dtype(q.dtype, c.dtype)
     with annotate("pmm.matmul"):
-        out = pairwise_matmul(
-            _to_jax(q, dt), _to_jax(c, dt), precision=cfg.precision
-        )
+        out = pairwise_matmul(_to_jax(q, dt), _to_jax(c, dt))
     return _host_owned(out)
 
 
@@ -149,23 +148,11 @@ def _validate_mask(mask, n: int):
     return m.astype(bool)
 
 
-def _device_topk(qj, cj, k: int, metric: Metric, cfg: SearchConfig,
-                 mask=None):
-    """Dispatch to the Pallas fused kernel / XLA path on device arrays."""
-    from ..kernels.fused_topk import fused_topk
-
-    with annotate(f"pmm.topk.{metric.value}"):
-        return fused_topk(qj, cj, k, metric, mask=mask, config=cfg)
-
-
 def _packed_oneshot_fn(k: int, metric: Metric, cfg: SearchConfig,
                        masked: bool):  # masked: cache-key arity marker
-    """One jitted program: corpus prep + kernel + finalize + pack.
-
-    The naive route pays one dispatch for the kernel, eager dispatches for
-    the euclidean finalize, and another for the pack — each a full RPC on
-    remote/tunneled deployments.  Cached per (k, metric, cfg, masked);
-    jit handles shape polymorphism beneath each entry.
+    """One jitted program: corpus prep + scan + finalize + pack (one
+    dispatch per call).  Cached per (k, metric, cfg, masked); jit handles
+    shape polymorphism beneath each entry.
     """
     import jax
 
@@ -181,8 +168,8 @@ def _packed_oneshot_fn(k: int, metric: Metric, cfg: SearchConfig,
 
 
 def _packed_prepared_fn(k: int, metric: Metric, cfg: SearchConfig,
-                        tn: int, masked: bool):  # masked: cache-key marker
-    """One jitted program for the prepared path: query prep + kernel +
+                        masked: bool):  # masked: cache-key marker
+    """One jitted program for the prepared path: query prep + scan +
     euclidean finalize + pack (single dispatch per call)."""
     import jax
 
@@ -191,8 +178,7 @@ def _packed_prepared_fn(k: int, metric: Metric, cfg: SearchConfig,
     @jax.jit
     def run(qj, cp, cbp, *m):
         vals, idx = fused_topk_prepared(
-            qj, cp, cbp, k, metric, mask=m[0] if m else None, tn=tn,
-            config=cfg,
+            qj, cp, cbp, k, metric, mask=m[0] if m else None, config=cfg,
         )
         return _pack_pair(vals, idx)
 
@@ -215,7 +201,7 @@ _ONESHOT_CACHE: dict = {}
 
 
 @functools.lru_cache(maxsize=64)
-def _prep_chunk_fn(metric_v: str, precision: str, tn: int):
+def _prep_chunk_fn(metric_v: str, precision: str):
     """Jitted row-chunk prep, cached per prepared-form key so Corpus.add
     compiles each splice program once.  int8c preps take (codes, scales)."""
     import jax
@@ -224,7 +210,7 @@ def _prep_chunk_fn(metric_v: str, precision: str, tn: int):
 
     def run(chunk, *rest):
         return prepare_corpus(
-            chunk, Metric.parse(metric_v), tn=tn, precision=precision,
+            chunk, Metric.parse(metric_v), precision=precision,
             scales=rest[0] if rest else None,
         )
 
@@ -332,8 +318,8 @@ def _unpack_int4_np(packed: np.ndarray, ck: int, dim: int) -> np.ndarray:
 
 
 def _round_up_rows(n: int, m: int = 4096) -> int:
-    """int8 shared-storage row padding: a multiple every standard corpus
-    tile height (powers of two <= 4096) divides."""
+    """Quantized shared-storage row padding: buffers grow in whole
+    4096-row units, so a small add rarely reallocates."""
     return ((n + m - 1) // m) * m
 
 
@@ -375,12 +361,11 @@ def _packed_topk(qj, cj, k: int, metric: Metric, cfg: SearchConfig, mask):
 
 def _pack_pair(vals, idx):
     """Pack (vals, idx) into one device array so results come back to the
-    host in a single transfer (each extra fetch costs a full round trip on
-    tunneled/remote devices).
+    host in a single transfer.
 
     The f32 path packs in INTEGER space (scores bitcast to int32), never
-    the other way around: small int32 indices bitcast to f32 are denormals,
-    which TPU float pipelines flush to zero in transit.
+    the other way around: small int32 indices bitcast to f32 are
+    denormals, which a float pipeline may flush to zero.
     """
     import jax
     import jax.numpy as jnp
@@ -420,8 +405,8 @@ def _fetch_topk(vals, idx, k: int):
     return _unpack_pair(packed, k)
 
 
-def _scatter_rows_sharded(sc, n_shards: int, storage: str, dim: int,
-                          r: np.ndarray, idx_np: np.ndarray):
+def _scatter_rows_sharded(sc, storage: str, dim: int, r: np.ndarray,
+                          idx_np: np.ndarray):
     """Scatter f32 rows ``r`` into a ShardedCorpus at global array
     POSITIONS ``idx_np`` (storage-native), patching every cached
     per-shard prepared form through donated programs.
@@ -433,10 +418,7 @@ def _scatter_rows_sharded(sc, n_shards: int, storage: str, dim: int,
     applies.  Positions must be unique and within the existing padded
     height (no growth here).
     """
-    import jax
-
     quantized = storage in ("int8", "int4")
-    ns = sc.data.shape[0] // n_shards
     m = r.shape[0]
     put_rows, put_cols = _scatter_fns()
     idx_j = _to_jax(idx_np.astype(np.int32), np.dtype(np.int32))
@@ -474,13 +456,11 @@ def _scatter_rows_sharded(sc, n_shards: int, storage: str, dim: int,
             else:
                 shared[id(cbp_e)] = (cbp_e, [key])
         sc.data = put_rows(sc.data, rj, idx_j)
-        with jax.enable_x64(False):
-            for cbp_e, keys in list(shared.values()):
-                cbc = _quant_bias_chunk_fn(
-                    keys[0][0], storage)(rj, scales_j)
-                new_cbp = put_cols(cbp_e, cbc, idx_j)
-                for key in keys:
-                    sc._prepared[key] = (sc.data, new_cbp)
+        for cbp_e, keys in list(shared.values()):
+            cbc = _quant_bias_chunk_fn(keys[0][0], storage)(rj, scales_j)
+            new_cbp = put_cols(cbp_e, cbc, idx_j)
+            for key in keys:
+                sc._prepared[key] = (sc.data, new_cbp)
         return
 
     import jax.numpy as jnp
@@ -496,20 +476,14 @@ def _scatter_rows_sharded(sc, n_shards: int, storage: str, dim: int,
     prep_src = rj if storage == "bf16" else rj32
     sc._f32_view = None
     sc.data = put_rows(sc.data, rj, idx_j)
-    with jax.enable_x64(False):
-        for key in list(sc._prepared):
-            cp_e, cbp_e = sc._prepared.pop(key)
-            # Per-shard prep geometry: shard s's local rows are padded
-            # to a tile multiple, so global row g sits at prep row
-            # (g // ns) * ns_pad + g % ns.
-            ns_pad = cp_e.shape[0] // n_shards
-            pos_np = ((idx_np // ns) * ns_pad
-                      + idx_np % ns).astype(np.int32)
-            pos = _to_jax(pos_np, np.dtype(np.int32))
-            cpc, cbc = _prep_chunk_fn(*key)(prep_src)
-            cp_e = put_rows(cp_e, cpc[:m], pos)
-            cbp_e = put_cols(cbp_e, cbc[:, :m], pos)
-            sc._prepared[key] = (cp_e, cbp_e)
+    # Per-shard prepared forms keep the shards' row geometry, so global
+    # position g is prepared row g as well.
+    for key in list(sc._prepared):
+        cp_e, cbp_e = sc._prepared.pop(key)
+        cpc, cbc = _prep_chunk_fn(*key)(prep_src)
+        cp_e = put_rows(cp_e, cpc[:m], idx_j)
+        cbp_e = put_cols(cbp_e, cbc[:, :m], idx_j)
+        sc._prepared[key] = (cp_e, cbp_e)
 
 
 class Corpus:
@@ -535,18 +509,18 @@ class Corpus:
         """``storage="bf16"`` keeps the device corpus in bfloat16 (half the
         HBM; scores then carry the ~2^-9 storage quantization — opt-in).
         Composes with ``mesh``: shards are stored bf16 and searched with
-        the same "bf16c" kernel mode as single-device bf16 handles.
+        the same "bf16c" tier as single-device bf16 handles.
 
         ``storage="int8"`` keeps per-row symmetric int8 codes + one f32
         scale per row (a quarter of the f32 HBM, and the ingestion upload
-        moves a quarter of the bytes).  The fused kernel converts codes to
-        bf16 in VMEM (int8 values are bf16-exact) and folds the dequant
-        scale into the epilogue, so scores match the *dequantized* corpus
-        to ~1e-5 and recall@10 vs exact f32 is ~0.99 on random data.
+        moves a quarter of the bytes).  The scan converts each step's codes
+        to bf16 (int8 values are bf16-exact) and folds the dequant scale
+        into the epilogue, so scores match the *dequantized* corpus to
+        ~1e-5 and recall@10 vs exact f32 is ~0.99 on random data.
         Quantization happens once at ingestion; every metric reuses the
         same codes (for cosine the scale cancels against the row norm).
         Composes with ``mesh=``: int8 shards + sharded scales, searched
-        with the same "int8c" kernel mode (4x the corpus rows per chip).
+        with the same "int8c" tier (4x the corpus rows per device).
         Pre-quantized corpora skip that step: pass int8 ``embeddings``
         (the codes) with ``scales`` (n,) — the contract is
         ``row ~= codes * scale`` (this is also what ``Corpus.load``
@@ -676,12 +650,11 @@ class Corpus:
                 # Quantize on host so the upload moves quantized bytes,
                 # not f32 (pre-quantized int8 codes pass straight
                 # through).  The code buffer is allocated directly in
-                # prepared-cp geometry (rows padded to a 4096 multiple —
-                # every standard tile height divides it — features padded
-                # to the kernel width; int4 nibble-packs two features per
-                # byte): quantized prep never changes the codes, so the
-                # prepared form ALIASES this buffer instead of copying
-                # it.  Residency = one code buffer, not two.
+                # prepared-cp geometry (rows padded to a 4096 multiple,
+                # features padded to a multiple of 128; int4 nibble-packs
+                # two features per byte): quantized prep never changes the
+                # codes, so the prepared form ALIASES this buffer instead
+                # of copying it.  Residency = one code buffer, not two.
                 from ..kernels.fused_topk import feature_geometry
 
                 ck, dpp, _ = feature_geometry(self.dim)
@@ -708,18 +681,17 @@ class Corpus:
 
                 dev = jnp.pad(dev, ((0, self._cap - self.n), (0, 0)))
             self._device = dev
-        # Lazy f32 upcast of a bf16-stored corpus, built only if a
-        # non-Pallas path (k > max_fused_k, dim > 8192, use_pallas=False) or
-        # Corpus.matmul needs dense values; costs the f32 bytes once.
+        # Lazy f32 view of a quantized corpus, built only if Corpus.matmul
+        # needs dense values; costs the f32 bytes once.
         self._f32_view = None
-        # Per-(k, metric, cfg, tn, masked) single-dispatch jitted programs
-        # (kernel + finalize + result packing in one call).
+        # Per-(k, metric, cfg, masked) single-dispatch jitted programs
+        # (scan + finalize + result packing in one call).
         self._packed_fns = {}
         # Tombstoned rows (Corpus.delete): excluded from every topk via
         # the mask path — no re-upload or re-prep needed.
         self._tombstones: Optional[np.ndarray] = None
         self._alive_dev = None  # cached device mask for the no-user-mask case
-        # Per-metric prepared forms (pre-scaled + padded + precision-split),
+        # Per-(metric, precision) prepared forms (pre-scaled, converted),
         # built lazily on first use: steady-state queries then do zero
         # per-call corpus work on device.
         self._prepared = {}
@@ -776,13 +748,12 @@ class Corpus:
                     shared[id(cbp)] = (cbp, [key])
             self._device = put_rows(self._device, rj, pos)
             self._f32_view = None
-            with jax.enable_x64(False):
-                for cbp, keys in list(shared.values()):
-                    cbc = _quant_bias_chunk_fn(
-                        keys[0][0], self.storage)(rj, scales_j)
-                    new_cbp = put_cols(cbp, cbc, pos)
-                    for key in keys:
-                        self._prepared[key] = (self._device, new_cbp)
+            for cbp, keys in list(shared.values()):
+                cbc = _quant_bias_chunk_fn(
+                    keys[0][0], self.storage)(rj, scales_j)
+                new_cbp = put_cols(cbp, cbc, pos)
+                for key in keys:
+                    self._prepared[key] = (self._device, new_cbp)
             return
 
         rj32 = _to_jax(r, np.dtype(np.float32))
@@ -800,29 +771,23 @@ class Corpus:
         self._f32_view = None
 
         # Write the new rows into every cached prepared form: prep is
-        # row-wise (per-row scaling / bias / precision split), so a chunk
-        # prep of just the new rows is exact.  (Prepared forms only exist
-        # for f32-semantic handles, so the x64-off trace context cannot
-        # downcast anything real.)
-        with jax.enable_x64(False):
-            for key in list(self._prepared):
-                cp, cbp = self._prepared.pop(key)
-                cpc, cbc = _prep_chunk_fn(*key)(prep_src)
-                cp = put_rows(cp, cpc[:m], pos)
-                cbp = put_cols(cbp, cbc[:, :m], pos)
-                self._prepared[key] = (cp, cbp)
+        # row-wise (per-row scaling / bias / conversion), so a chunk prep
+        # of just the new rows is exact.
+        for key in list(self._prepared):
+            cp, cbp = self._prepared.pop(key)
+            cpc, cbc = _prep_chunk_fn(*key)(prep_src)
+            cp = put_rows(cp, cpc[:m], pos)
+            cbp = put_cols(cbp, cbc[:, :m], pos)
+            self._prepared[key] = (cp, cbp)
 
     def _apply_row_mutation_sharded(self, r, idx_np):
         """Mesh analog of _apply_row_mutation for update(): scatter new
         rows into the sharded raw buffer and every cached per-shard
         prepared form through donated programs.  Global row ids ARE
         global array positions (block partitioning pads only at the
-        global tail), so the data scatter is direct; float prepared
-        forms carry per-shard tile padding, so their positions are
-        remapped shard-locally."""
-        n_shards = self.mesh.shape[self.config.mesh_axes[1]]
-        _scatter_rows_sharded(self._device, n_shards, self.storage,
-                              self.dim, r, idx_np)
+        global tail), so the scatter is direct."""
+        _scatter_rows_sharded(self._device, self.storage, self.dim, r,
+                              idx_np)
 
 
 
@@ -844,7 +809,7 @@ class Corpus:
     def add(self, rows: ArrayLike) -> int:
         """Append corpus rows; returns the new row count.
 
-        Dynamic growth the TPU way (static shapes + masking): device
+        Dynamic growth with static shapes and masking: device
         buffers are allocated at ``_cap`` rows with a -inf prepared bias
         beyond ``n``, so an add within capacity is a handful of in-place
         row writes — the raw buffer, and each cached prepared form (the
@@ -1111,10 +1076,10 @@ class Corpus:
         return _to_jax(user_mk & ~self._tombstones, np.dtype(bool))
 
     def _effective_precision(self) -> str:
-        """The kernel precision this handle runs with.
+        """The search tier this handle runs with.
 
-        bf16 storage always uses the "bf16c" kernel mode (corpus = hi
-        half only) and int8 storage the "int8c" mode: the values are
+        bf16 storage always uses the "bf16c" tier and int8/int4 storage
+        the "int8c"/"int4c" tiers: the values are
         quantized at rest, so requesting "highest"/"bf16x3" could only
         spend memory, not recover accuracy.
         """
@@ -1127,8 +1092,9 @@ class Corpus:
         return self.config.precision
 
     def _dense_device(self):
-        """Dense compute-dtype corpus for fallback/matmul paths (cached);
-        (n, dim) exactly (storage padding trimmed)."""
+        """Dense compute-dtype corpus for matmul and the f64 search path
+        (cached for quantized storage); (n, dim) exactly (storage padding
+        trimmed)."""
         if self.storage == "f32":
             return (self._device if self._device.shape[0] == self.n
                     else self._device[: self.n])
@@ -1150,112 +1116,72 @@ class Corpus:
             self._f32_view = jax.block_until_ready(dense)
         return self._f32_view
 
-    def _prepared_for(self, metric, k: int = 1):
+    def _prepared_for(self, metric):
         """Cached (cp, cbp) from kernels.fused_topk.prepare_corpus.
 
-        Large corpora are prepared in row chunks (multiples of the corpus
-        tile height, so chunk boundaries never introduce interior padding)
-        with the output buffers donated through each update: one-shot prep
-        transiently holds ~3x the corpus bytes, chunked ~2x + one chunk.
+        Quantized storage shares its code buffer as cp; only the (2, rows)
+        scale|bias operand is computed.  Large float corpora are prepared
+        in row chunks with the output buffers donated through each
+        update: one-shot prep transiently holds ~3x the corpus bytes,
+        chunked ~2x + one chunk.
         """
-        from ..kernels.fused_topk import corpus_tile_rows, prepare_corpus
+        from ..kernels.fused_topk import prepare_corpus
 
         precision = self._effective_precision()
-        # Key on the tile height too: the prep is padded for it, and the
-        # handle's config is mutable (examples do `corpus.config = cfg`).
-        tn = corpus_tile_rows(self.dim, self.config, k)
-        key = (metric.value, precision, tn)
+        # Key on the precision too: the handle's config is mutable
+        # (examples do `corpus.config = cfg`).
+        key = (metric.value, precision)
         if key in self._prepared:
-            return self._prepared[key] + (tn,)
+            return self._prepared[key]
 
         import functools
 
         import jax
 
-        if (self._quantized and self.mesh is None
-                and self._device.shape[0] % tn == 0):
-            # Shared-storage fast path: the code buffer IS the prepared
-            # cp (allocated in cp geometry at construction; int8 prep
-            # never changes the codes).  Only the (2, rows) scale|bias
-            # operand is computed — chunked, so the f32 norm temp never
-            # exceeds one chunk even for multi-GB corpora.  The bias rows
-            # are tile-height-independent, so a different k-regime reuses
-            # them as-is.
-            for (mv, pv, _t), (cp_o, cbp_o) in self._prepared.items():
-                if ((mv, pv) == (metric.value, precision)
-                        and cbp_o.shape[1] == self._device.shape[0]):
-                    self._prepared[key] = (self._device, cbp_o)
-                    return self._prepared[key] + (tn,)
+        if self._quantized and self.mesh is None:
             self._prepared[key] = (
                 self._device, self._quant_bias_rows(metric))
-            return self._prepared[key] + (tn,)
+            return self._prepared[key]
 
-        def prep(chunk, *rest):  # rest = (scales_chunk,) on the int8 path
-            return prepare_corpus(
-                chunk, metric, tn=tn, precision=precision,
-                scales=rest[0] if rest else None,
-            )
+        def prep(chunk):
+            return prepare_corpus(chunk, metric, precision=precision)
 
         c = self._device  # prepare_corpus upcasts bf16 chunks internally
         raw_bytes = c.shape[0] * c.shape[1] * c.dtype.itemsize
-        if raw_bytes > self.config.prep_chunk_bytes:
-            # Large corpus: never hold two full preps just because a query
-            # arrived in a different k-regime — reuse any existing prep for
-            # this (metric, precision) and run with its tile height (the
-            # retiling gain is smaller than a duplicate multi-GB prep).
-            for (mv, pv, tn_old), prep_old in self._prepared.items():
-                if (mv, pv) == (metric.value, precision):
-                    return prep_old + (tn_old,)
-        with jax.enable_x64(False):
-            if raw_bytes <= self.config.prep_chunk_bytes:
-                args = (c,) if self._scales is None else (c, self._scales)
-                self._prepared[key] = jax.block_until_ready(
-                    self._mask_capacity_tail(*jax.jit(prep)(*args)))
-                return self._prepared[key] + (tn,)
-
-            import jax.numpy as jnp
-
-            # Chunked path: only the final chunk carries padding / the
-            # -inf tail bias, exactly like the one-shot prep.
-            row_bytes = c.shape[1] * c.dtype.itemsize
-            rows_per_chunk = max(
-                tn, self.config.prep_chunk_bytes // row_bytes // tn * tn
-            )
-            n = c.shape[0]
-            np_ = ((n + tn - 1) // tn) * tn
-            probe_shapes = [
-                jax.ShapeDtypeStruct((rows_per_chunk, c.shape[1]), c.dtype)
-            ]
-            if self._scales is not None:
-                probe_shapes.append(
-                    jax.ShapeDtypeStruct((rows_per_chunk,),
-                                         self._scales.dtype))
-            probe_cp, probe_cb = jax.eval_shape(prep, *probe_shapes)
-            buf_cp = jnp.zeros((np_, probe_cp.shape[1]), probe_cp.dtype)
-            buf_cb = jnp.zeros((probe_cb.shape[0], np_), probe_cb.dtype)
-
-            @functools.partial(jax.jit, donate_argnums=(0, 1))
-            def update(buf_cp, buf_cb, row0, chunk, *rest):
-                cpc, cbc = prep(chunk, *rest)
-                buf_cp = jax.lax.dynamic_update_slice(
-                    buf_cp, cpc, (row0, jnp.int32(0)))
-                buf_cb = jax.lax.dynamic_update_slice(
-                    buf_cb, cbc, (jnp.int32(0), row0))
-                return buf_cp, buf_cb
-
-            row0 = 0
-            while row0 < n:
-                rows = min(rows_per_chunk, n - row0)
-                chunk = jax.lax.dynamic_slice_in_dim(c, row0, rows, axis=0)
-                rest = (() if self._scales is None else
-                        (jax.lax.dynamic_slice_in_dim(
-                            self._scales, row0, rows, axis=0),))
-                buf_cp, buf_cb = update(buf_cp, buf_cb, jnp.int32(row0),
-                                        chunk, *rest)
-                row0 += rows
+        if raw_bytes <= self.config.prep_chunk_bytes:
             self._prepared[key] = jax.block_until_ready(
-                self._mask_capacity_tail(buf_cp, buf_cb))
-        return self._prepared[key] + (tn,)
+                self._mask_capacity_tail(*jax.jit(prep)(c)))
+            return self._prepared[key]
+
+        import jax.numpy as jnp
+
+        row_bytes = c.shape[1] * c.dtype.itemsize
+        rows_per_chunk = max(1, self.config.prep_chunk_bytes // row_bytes)
+        n = c.shape[0]
+        probe_cp, probe_cb = jax.eval_shape(
+            prep, jax.ShapeDtypeStruct((rows_per_chunk, c.shape[1]),
+                                       c.dtype))
+        buf_cp = jnp.zeros((n, probe_cp.shape[1]), probe_cp.dtype)
+        buf_cb = jnp.zeros((probe_cb.shape[0], n), probe_cb.dtype)
+
+        @functools.partial(jax.jit, donate_argnums=(0, 1))
+        def update(buf_cp, buf_cb, row0, chunk):
+            cpc, cbc = prep(chunk)
+            buf_cp = jax.lax.dynamic_update_slice(
+                buf_cp, cpc, (row0, jnp.int32(0)))
+            buf_cb = jax.lax.dynamic_update_slice(
+                buf_cb, cbc, (jnp.int32(0), row0))
+            return buf_cp, buf_cb
+
+        row0 = 0
+        while row0 < n:
+            rows = min(rows_per_chunk, n - row0)
+            chunk = jax.lax.dynamic_slice_in_dim(c, row0, rows, axis=0)
+            buf_cp, buf_cb = update(buf_cp, buf_cb, jnp.int32(row0), chunk)
+            row0 += rows
+        self._prepared[key] = jax.block_until_ready(
+            self._mask_capacity_tail(buf_cp, buf_cb))
+        return self._prepared[key]
 
     def _quant_bias_rows(self, metric):
         """(2, rows) scale|bias for a shared quantized (int8/int4) code
@@ -1276,31 +1202,30 @@ class Corpus:
         per_chunk = max(
             4096, self.config.prep_chunk_bytes // row_bytes // 4096 * 4096
         )
-        with jax.enable_x64(False):
-            if rows <= per_chunk:
-                fn = jax.jit(_ft.partial(bias_fn, metric=metric))
-                return jax.block_until_ready(
-                    fn(self._device, self._scales, n_valid=jnp.int32(self.n)))
+        if rows <= per_chunk:
+            fn = jax.jit(_ft.partial(bias_fn, metric=metric))
+            return jax.block_until_ready(
+                fn(self._device, self._scales, n_valid=jnp.int32(self.n)))
 
-            buf = jnp.zeros((2, rows), jnp.float32)
+        buf = jnp.zeros((2, rows), jnp.float32)
 
-            @_ft.partial(jax.jit, donate_argnums=(0,))
-            def update(buf, codes_c, scales_c, row0, n_valid_local):
-                cbc = bias_fn(codes_c, scales_c, metric, n_valid_local)
-                return jax.lax.dynamic_update_slice(
-                    buf, cbc, (jnp.int32(0), row0))
+        @_ft.partial(jax.jit, donate_argnums=(0,))
+        def update(buf, codes_c, scales_c, row0, n_valid_local):
+            cbc = bias_fn(codes_c, scales_c, metric, n_valid_local)
+            return jax.lax.dynamic_update_slice(
+                buf, cbc, (jnp.int32(0), row0))
 
-            row0 = 0
-            while row0 < rows:
-                nr = min(per_chunk, rows - row0)
-                codes_c = jax.lax.dynamic_slice_in_dim(
-                    self._device, row0, nr, axis=0)
-                scales_c = jax.lax.dynamic_slice_in_dim(
-                    self._scales, row0, nr, axis=0)
-                buf = update(buf, codes_c, scales_c, jnp.int32(row0),
-                             jnp.int32(self.n - row0))
-                row0 += nr
-            return jax.block_until_ready(buf)
+        row0 = 0
+        while row0 < rows:
+            nr = min(per_chunk, rows - row0)
+            codes_c = jax.lax.dynamic_slice_in_dim(
+                self._device, row0, nr, axis=0)
+            scales_c = jax.lax.dynamic_slice_in_dim(
+                self._scales, row0, nr, axis=0)
+            buf = update(buf, codes_c, scales_c, jnp.int32(row0),
+                         jnp.int32(self.n - row0))
+            row0 += nr
+        return jax.block_until_ready(buf)
 
     def _mask_capacity_tail(self, cp, cbp):
         """Reserved-capacity rows ([n, _cap)) are zeros in the raw buffer;
@@ -1344,14 +1269,15 @@ class Corpus:
                 np.empty((q.shape[0], 0), np.float64),
             )
         # Half-precision queries (f16 / ml_dtypes bf16) serve on the f32
-        # path — like bf16 storage, f64 compute on quantized inputs would
-        # be theater.  On the Pallas path they also upload at half the
-        # host->device bytes (the only per-call transfer once the corpus
-        # is resident) and upcast on device.
+        # path, and so does every query against a quantized (bf16/int8/
+        # int4) corpus: f64 compute on quantized inputs would be theater.
+        # Half-precision queries also upload at half the host->device
+        # bytes (the only per-call transfer once the corpus is resident)
+        # and upcast on device.
         half_q = (q.dtype.itemsize == 2
                   and np.issubdtype(q.dtype, np.floating)
                   or str(q.dtype) == "bfloat16")
-        dt = (np.dtype(np.float32) if half_q
+        dt = (np.dtype(np.float32) if half_q or self.storage != "f32"
               else compute_dtype(q.dtype, self.dtype))
         if self.mesh is not None:
             from ..parallel.sharded import distributed_topk
@@ -1360,52 +1286,27 @@ class Corpus:
                 _to_jax(q, dt), self._device, kk, metric, self.mesh,
                 self.config, mask=self._combined_mask(user_mk),
             )
-        else:
-            from ..kernels.fused_topk import (fused_topk_prepared, max_fused_k,
-                                              supports)
+        elif dt == np.float64:
+            from ..kernels.fused_topk import fused_topk
 
-            dev_ok = (
-                np.dtype(self._device.dtype) == np.float32
-                or (self.storage == "bf16"
-                    and str(self._device.dtype) == "bfloat16")
-                or (self._quantized
-                    and np.dtype(self._device.dtype) == np.int8)
-            )
-            sup = supports(q.shape, (self.n, self.dim), dt, kk,
-                           self.config)
-            if (not sup and self.storage != "f32" and dt == np.float32
-                    and kk <= max_fused_k(self.config)):
-                # Quantized storage above max_fused_dim: supports() says
-                # XLA is faster there, but the XLA path would materialize
-                # (and cache) a dense f32 copy — 2x/4x the quantized HBM,
-                # exactly what the storage tier exists to avoid.  The
-                # K-chunked kernel serves any dim from the codes directly.
-                sup = True
-            if (
-                self.config.use_pallas
-                and dt == np.float32
-                and dev_ok
-                and sup
-            ):
-                qj = _to_jax(q, q.dtype) if half_q else _to_jax(q, dt)
-                cp, cbp, tn = self._prepared_for(metric, kk)
-                run_cfg = self.config
-                eff = self._effective_precision()
-                if eff != run_cfg.precision:
-                    run_cfg = run_cfg.with_updates(precision=eff)
-                key = (kk, metric, run_cfg, tn, masked)
-                fn = _cached_fn(self._packed_fns, key, _packed_prepared_fn)
-                mkj = self._device_mask(user_mk)
-                args = (qj, cp, cbp) + (() if mkj is None else (mkj,))
-                with annotate(f"pmm.topk.{metric.value}"):
-                    packed = np.asarray(fn(*args))
-                v, i = _unpack_pair(packed, kk)
-                return i.astype(np.uint32), v.astype(np.float64)
-            qj = _to_jax(q, dt)
             dense = self._dense_device()  # (n, dim): padding trimmed
-            cj = dense if dt == dense.dtype else dense.astype(dt)
-            vals, idx = _device_topk(qj, cj, kk, metric, self.config,
-                                     mask=self._combined_mask(user_mk))
+            with annotate(f"pmm.topk.{metric.value}"):
+                vals, idx = fused_topk(
+                    _to_jax(q, dt), dense.astype(dt), kk, metric,
+                    mask=self._combined_mask(user_mk), config=self.config)
+        else:
+            qj = _to_jax(q, q.dtype) if half_q else _to_jax(q, dt)
+            cp, cbp = self._prepared_for(metric)
+            run_cfg = self.config.with_updates(
+                precision=self._effective_precision())
+            key = (kk, metric, run_cfg, masked)
+            fn = _cached_fn(self._packed_fns, key, _packed_prepared_fn)
+            mkj = self._device_mask(user_mk)
+            args = (qj, cp, cbp) + (() if mkj is None else (mkj,))
+            with annotate(f"pmm.topk.{metric.value}"):
+                packed = np.asarray(fn(*args))
+            v, i = _unpack_pair(packed, kk)
+            return i.astype(np.uint32), v.astype(np.float64)
         v, i = _fetch_topk(vals, idx, kk)
         return i.astype(np.uint32), v.astype(np.float64)
 
@@ -1433,6 +1334,5 @@ class Corpus:
         dense = self._dense_device()  # (n, dim): padding trimmed
         cj = dense if np.dtype(dense.dtype) == dt else dense.astype(dt)
         with annotate("pmm.matmul"):
-            out = pairwise_matmul(_to_jax(q, dt), cj,
-                                  precision=self.config.precision)
+            out = pairwise_matmul(_to_jax(q, dt), cj)
         return _host_owned(out)

@@ -1,12 +1,12 @@
 """Global configuration for polars-matmul-tpu.
 
-The reference library (polars-matmul, see /root/reference) is zero-config:
+The reference library (the polars-matmul Rust plugin) is zero-config:
 behaviour is fully determined by the call signature
 (``topk(corpus, k, metric="cosine")`` — reference ``__init__.py:63-68`` —
 and ``matmul(corpus, flatten=False)`` — reference ``__init__.py:121-125``).
 We keep that contract: every knob here has a compiled default that preserves
-reference semantics, and ``SearchConfig`` is an *optional* override for tile
-sizes, mesh shape, merge strategy and precision.
+reference semantics, and ``SearchConfig`` is an *optional* override for the
+precision tier, the probe geometry, the mesh and the merge strategy.
 """
 
 from __future__ import annotations
@@ -42,96 +42,45 @@ def ensure_x64() -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SearchConfig:
-    """Tuning knobs for the fused search path.
+    """Optional knobs of the search path.  All sizes are in rows."""
 
-    Defaults are chosen for TPU v5e-class hardware (128x128 MXU, ~16 MB
-    VMEM/core).  All sizes are in elements, not bytes.
-    """
-
-    # Pallas fused-topk kernel tiling (tuned on TPU v5e, see bench sweeps).
-    block_q: int = 256       # query rows per grid step (multiple of 8)
-    block_n: int = 2048      # corpus rows per grid step (multiple of 128)
-    # Padded width of the top-k carry (lane dimension); k is clamped to this.
-    k_pad: int = 128
-    # Fused-kernel selection strategy.  "auto" (default) picks by regime
-    # from measured v5e crossovers (see _resolve_selection for the
-    # numbers): 2 <= k <= 16 on a dense <= 16384-padded-row corpus ->
-    # "gpop" (per-class stacks persisted ACROSS corpus tiles + an
-    # in-kernel k-pop finish — no XLA finish dispatch at all); k == 1 or
-    # outside that envelope -> "bucket" (lane-class reduce + narrow
-    # merge) on few-tile corpora, "extract" (whose 64-row-group prune
-    # gating dominates) on many-tile ones; k > 16 -> "gstack" (same
-    # persistent stacks + one XLA approx_max_k finish over the flushed
-    # panel, lax.cond exact re-run on the rare detection hit), SEGMENTED
-    # beyond 16384 rows (per-128-group stacks flushed to one panel slab
-    # per segment), else "stack" (per-tile stacks: probed scans and
-    # non-power-of-two tilings).  "insert" (candidate-count-bounded
-    # dynamic merge) is kept for A/B: its dynamic fori_loop defeats
-    # Mosaic's unrolling.
-    selection: str = "auto"
-    # Allow the dispatcher to retile for the problem (e.g. large k gets
-    # fewer, bigger corpus tiles).  Set False to pin block_q/block_n.
-    auto_tile: bool = True
-    # Matmul precision inside the fused kernel.  "bf16x3" splits each f32
-    # input into bf16 hi+lo halves and runs three full-rate bf16 MXU
-    # passes, dropping the lo.lo term: score error is ~4e-6 relative on
-    # random data and bounded by ~1.5e-5 relative in the adversarial
-    # worst case (all per-term errors aligned) — slightly outside the
-    # reference's rtol=1e-5 in that corner, traded for ~2x the speed of
-    # XLA's 6-pass "highest".  Set precision="highest" for exact f32
-    # (SURVEY.md §7 hard part #2); the dense matmul op and the XLA oracle
-    # always compute exact f32.
+    # Query rows per probe block: probed search ranks corpus tiles once
+    # per block of this many queries (ClusteredCorpus, sharded probe).
+    block_q: int = 256
+    # Corpus rows per tile: the unit a clustered layout pads clusters to
+    # and a probe lists (ClusteredCorpus files record it).
+    block_n: int = 1024
+    # Product precision of the f32 search tiers.  "bf16x3" takes three
+    # bf16 passes (hi.hi + hi.lo + lo.hi of each f32 operand split, the
+    # lo.lo term dropped): score error ~4e-6 relative on random data and
+    # bounded by ~1.5e-5 relative in the adversarial worst case (all
+    # per-term errors aligned), slightly outside the reference's
+    # rtol=1e-5 in that corner.  "highest" is exact f32.  The dense
+    # matmul op and the reference oracle always compute exact f32.
+    # Quantized storage tiers pick their own arithmetic ("bf16c",
+    # "int8c", "int4c"; see kernels.fused_topk._step_products).
     precision: str = "bf16x3"
-    # Tile pruning in the fused kernel: a corpus tile can only change the
-    # top-k carry if some row's tile-max beats that row's current k-th
-    # best (ties lose to the carry), so one max pass can skip the k
-    # extraction passes entirely.  Exact.  Wins grow with corpus size
-    # (later tiles rarely update a strong carry); "auto" enables it when
-    # the corpus spans >= 16 tiles, "on"/"off" force it.
-    prune: str = "auto"
-    # Use the Pallas kernel when possible; False forces the XLA lax.top_k path.
-    use_pallas: bool = True
-    # Let an all-defaults dispatch adopt the persisted autotune winner for
-    # this (device kind, problem class) when one exists (see
-    # utils.autotune.cached_winner): run pmt.autotune(...) once on a new
-    # TPU generation and every later default-config call uses the measured
-    # winner instead of the v5e regime map.  Any explicitly pinned tuning
-    # field (tiling/selection/precision/prune) disables consultation for
-    # that call; False disables it outright.
-    use_autotune_cache: bool = True
-    # Above this dim the fused kernel runs K-chunked (third grid axis,
-    # partial dots accumulated in VMEM) — correct at any dim, but measured
-    # slower than the XLA fallback at high dim (see kernels.fused_topk
-    # .supports), so it is only chosen when the XLA path would materialize
-    # more than fallback_score_bytes of (m, n) scores.
-    max_fused_dim: int = 8192
-    fallback_score_bytes: int = 1 << 30
     # Distributed merge strategy: "allgather" (gather per-shard k candidates,
     # re-select locally) or "ring" (ppermute carry merge).
     merge: str = "allgather"
     # Corpus preparation (Corpus handle) runs in row chunks once the raw
     # corpus exceeds this many bytes: one-shot prep transiently holds ~3x
-    # the corpus (raw + scaled + split), chunked prep ~2x + one chunk.
+    # the corpus (raw + scaled + converted), chunked prep ~2x + one chunk.
     prep_chunk_bytes: int = 1 << 30
     # Ring merge only: number of query chunks pipelined around the ring.
     # Chunk p's ppermute chain has no data dependence on chunk p+1's local
-    # search, so XLA's latency-hiding scheduler can overlap the ICI
-    # exchange with the next chunk's MXU work (the north-star
-    # merge-overlapped-with-compute requirement).  1 disables pipelining.
+    # search, so XLA's scheduler can overlap the exchange with the next
+    # chunk's search.  1 disables pipelining.
     ring_pipeline: int = 2
     # Mesh axis names used by the parallel layer.
     mesh_axes: Tuple[str, str] = ("data", "corpus")
 
     def __post_init__(self):
-        # Fail fast on typo'd enum knobs (prune='true', merge='tree', ...):
-        # every one of these silently selected a default behavior before.
+        # Fail fast on typo'd enum knobs (merge='tree', ...): each of these
+        # silently selected a default behavior before.
         for field, allowed in (
-            ("prune", ("auto", "on", "off")),
-            ("selection", ("auto", "extract", "insert", "bucket",
-                           "stack", "gstack", "gpop")),
             ("merge", ("allgather", "ring")),
-            ("precision", ("default", "high", "highest",
-                           "bf16x3", "bf16c", "int8c", "int4c")),
+            ("precision", ("highest", "bf16x3", "bf16c", "int8c", "int4c")),
         ):
             v = getattr(self, field)
             if v not in allowed:

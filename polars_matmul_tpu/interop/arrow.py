@@ -1,6 +1,6 @@
-"""Arrow <-> NumPy/JAX interchange.
+"""Arrow <-> NumPy/JAX interchange (needs pyarrow; imported on first use).
 
-TPU-native replacement for the reference's Rust marshaling layer
+Replacement for the reference's Rust marshaling layer
 (src/matmul.rs:22-286):
 
 - ``extract_matrix``: embedding column (Arrow ``FixedSizeList`` — the
@@ -23,7 +23,14 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import pyarrow as pa
+
+try:
+    import pyarrow as pa
+except ImportError as e:  # the package itself imports without pyarrow
+    raise ImportError(
+        "polars_matmul_tpu's Arrow functions need pyarrow "
+        "(pip install pyarrow); the NumPy API works without it"
+    ) from e
 
 from .native import native_pack_list
 

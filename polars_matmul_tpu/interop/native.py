@@ -1,16 +1,22 @@
 """Loader for the C++ native marshaling library (ctypes C ABI).
 
-The shared object is built from ``native/pmm_native.cpp`` either by
-``make native`` (see Makefile) or lazily here on first import if a compiler
-is available.  Every entry point has a pure-NumPy fallback, so the package
-works (slower on ragged List inputs) without a toolchain.
+The shared object is built from the committed ``native/pmm_native.cpp``
+on first use, if a compiler is available, into ``build/native/`` of the
+checkout (``make native`` does the same).  Its file name carries a hash of
+the source and the host architecture, and it is compiled for the
+architecture's baseline instruction set, so a build never runs on a host
+or against a source it was not made for.  Every entry point has a
+pure-NumPy fallback, so the package works (slower on ragged List inputs)
+without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
 from typing import Optional
 
@@ -20,26 +26,30 @@ log = logging.getLogger("polars_matmul_tpu")
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_REPO_ROOT, "native", "pmm_native.cpp")
-_SO_DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_SO_DIR, "_pmm_native.so")
+_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "native")
 
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
-    if not os.path.exists(_SRC):
-        return False
-    # -fno-math-errno only drops errno bookkeeping (results unchanged);
-    # it is what lets gcc vectorize nearbyintf into roundps
-    cmd = [
-        "g++", "-O3", "-march=native", "-fno-math-errno", "-shared",
-        "-fPIC", "-std=c++17", "-o", _SO, _SRC,
-    ]
+def _so_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(
+        _BUILD_DIR, f"pmm_native-{digest}-{platform.machine()}.so")
+
+
+def _build(so: str) -> bool:
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    # -fno-math-errno only drops errno bookkeeping (results unchanged)
+    cmd = ["g++", "-O3", "-fno-math-errno", "-shared", "-fPIC",
+           "-std=c++17", "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
         return True
-    except Exception as e:  # pragma: no cover
+    except (OSError, subprocess.SubprocessError) as e:  # pragma: no cover
         log.debug("native build failed: %s", e)
         return False
 
@@ -49,13 +59,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    stale = (os.path.exists(_SO) and os.path.exists(_SRC)
-             and os.path.getmtime(_SRC) > os.path.getmtime(_SO))
-    if not os.path.exists(_SO) or stale:
-        if not _build() and not os.path.exists(_SO):
-            return None
+    if not os.path.exists(_SRC):
+        return None
+    so = _so_path()
+    if not os.path.exists(so) and not _build(so):
+        return None
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
     except OSError:  # pragma: no cover
         return None
 

@@ -1,101 +1,74 @@
-"""Pallas TPU kernel: fused matmul -> metric epilogue -> blockwise top-k.
+"""Exact top-k search as one XLA scan over corpus slabs.
 
-This is the TPU-native replacement for the reference's three separate passes
-(faer GEMM src/metrics.rs:40-255, dense metric epilogue src/metrics.rs:258-365,
-per-row quickselect src/topk.rs:6-75).  Instead of materializing the full
-(n_queries, n_corpus) score matrix in HBM — the reference's memory high-water
-mark (SURVEY.md §3.1) — the corpus is streamed tile-by-tile through VMEM and a
-per-query running top-k carry lives in VMEM scratch across grid steps.
+This replaces the reference's three separate passes (faer GEMM
+src/metrics.rs:40-255, dense metric epilogue src/metrics.rs:258-365,
+per-row quickselect src/topk.rs:6-75) with one traceable program that
+never holds the whole (n_queries, n_corpus) score matrix.  A
+``lax.fori_loop`` walks the prepared corpus in slabs of rows; each step
 
-Per corpus tile (grid minor axis, sequential on TPU):
-  d = Q_i @ C_j^T on the MXU (f32 accumulation), then at most one VPU bias
-  pass, then the carry is merged with the tile's top-k.  Selection
-  strategies (SearchConfig.selection, "auto" picks by measured regime):
+1. takes one slab: a contiguous row range, or for probed search the
+   tiles each query block lists, gathered;
+2. dequantizes it inside the step (int8 codes and int4 nibbles are exact
+   in bf16);
+3. takes the product at the tier's named precision (``_step_products``);
+4. applies the epilogue: the per-row scale of the quantized tiers, the
+   additive bias (euclidean ``-|c|^2`` and ``-inf`` on dead rows), and
+   the row mask by select;
+5. merges the step's own top-k into the running (m, k) carry with
+   ``lax.top_k`` over ``[carry | step]``.
 
-  "bucket"  — the k <= 16 default: one full-width pass keeps each of the
-      128 lane classes' best-3 over the tile's groups (only the best-2
-      carry positions), then k lexicographic-max extractions run over
-      the 256 bucket winners — ~8x narrower than the tile.  Exact for
-      every input: the merge can only miss an element if >=3 of a row's
-      top-k fall in one lane class of one tile, which (m3 >= k-th best)
-      detects; detected tiles re-run the exact full-width extraction
-      under STATIC pl.when gating (see _select_bucket for why the old
-      dynamic refill loop was 7x more expensive than the selection).
+Only one step's score slab exists at a time; the step height is chosen
+from the batch size so that slab stays bounded (``step_rows``).
 
-  "extract" — the k > 16 default: k iterative masked-argmax extractions
-      over the full tile.  O(k * TN) VPU work per tile, but every op is
-      a plain full-width max/argmax/where that Mosaic schedules
-      extremely well.
-
-  "insert"  — candidate-count-bounded dynamic merge-insertion; wins only
-      on many-tile corpora where most tiles contribute nothing.
-
-Metric handling (all metrics reduce to a plain dot product plus at most one
-cheap additive-bias pass; SURVEY.md §2.2 C7):
+Metric handling (every metric is a dot product plus one bias):
   dot:       s = q . c
-  cosine:    inputs are pre-scaled by their inverse norms outside the kernel
-             (zero-norm rows scaled by 0 so their scores are exactly 0.0,
-             matching reference metrics.rs:275-289), so s = q' . c'
-  euclidean: s = 2 q.c - |c|^2  (the per-query |q|^2 term shifts every score
-             in a row equally, so it cannot change the selection; it is
-             applied to the final (m, k) values outside the kernel, and the
-             monotonic sqrt once at the end — matching reference
-             metrics.rs:302-307 up to rounding).
-  The same bias vector masks the padded corpus tail with -inf (pad rows
-  are zero vectors, so the sum is a clean -inf), and an optional mask
-  operand filters corpus rows by SELECT for NaN-safe filtered search.
+  cosine:    q and c are pre-scaled by their inverse norms (zero-norm rows
+             by 0, so their scores are exactly 0.0, matching reference
+             metrics.rs:275-289), so s = q' . c'
+  euclidean: s = 2 q.c - |c|^2, which ranks like -|q - c|^2; the per-query
+             |q|^2 and the monotonic sqrt are applied once to the final
+             (m, k) values (reference metrics.rs:302-307 up to rounding).
 
-Tie-breaking is lowest-corpus-index-wins, identical to jax.lax.top_k
-(SURVEY.md §7 hard part #1: the contract the reference's unstable quickselect
-never pinned down).  "extract" preserves it exactly (first-maximum argmax
-over in-order lanes); "bucket" too (lowest-group-wins reduction plus
-(value, index)-lexicographic merge).  Known exception: "stack"/"gstack"
-can reorder EXACT duplicate scores landing in the same 128-row group but
-different lane classes — pop/panel order prefers the shallower stack
-LEVEL over the lower lane, so e.g. equal-scoring rows 0 and 1 may return
-index 1 first when class 0's stack pushed row 0 to a deeper level.
-Values are still correct and the index SET is exact; only the order
-among exact duplicates differs.  The reference itself gives no order
-guarantee under ties (unstable quickselect), so this stays inside the
-reference contract; tests that pin jax.lax.top_k order use
-bucket/extract or tie-free data.
+Contract: values best-first; ties broken lowest-corpus-index first
+(``lax.top_k`` keeps the lower position on ties, the carry only holds
+rows from earlier steps, and a step's columns are in corpus order — probed
+tile lists are ascending); slots no live row can fill carry the
+``(-inf, int32-max)`` sentinels (``+inf`` distance after the euclidean
+finalize).
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import SearchConfig, resolve
 from ..ops.metrics import Metric, cosine_eps
 from ..ops import reference
 
 _NEG_INF = float("-inf")
-_BIG_I32 = jnp.iinfo(jnp.int32).max
+_BIG_I32 = int(np.iinfo(np.int32).max)
 
-_PRECISION = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGHEST,  # Mosaic has no HIGH; round up
-    "highest": jax.lax.Precision.HIGHEST,
-}
+# Every product names its arithmetic.  An f32 dot left at the default
+# precision runs in TF32 on the GPU, which misses the score contract, so
+# f32 operands always go at HIGHEST; DEFAULT is named only on bf16
+# operands, whose products are exact in f32.
+_F32 = jax.lax.Precision.HIGHEST
+_BF16 = jax.lax.Precision.DEFAULT
 
-_LANES = 128
+# Tiers whose queries arrive as a bf16 hi|lo pair.
+_SPLIT_QUERY_TIERS = ("bf16x3", "bf16c", "int8c", "int4c")
 
-# Row-group granularity for tile pruning.  Smaller groups fire less often
-# under lockstep (P ~ 1-exp(-G*k*TN/n_seen)) but every gated region costs
-# ~0.5us of Mosaic predication overhead per corpus tile, so fine groups
-# drown in region entries (measured on 2M x 256d k=10 batch-256 v5e:
-# g8 21-22 ms, g16 14-15.5, g32 10-11.7, g64 7.8-9.1, whole-tile 12-13.6,
-# prune-off 10.8-12.1 — same shape across f32/bf16/int8 tiers).  64 rows
-# (4 regions per 256-row tile) is the measured optimum.
-_PRUNE_GROUP = 64
+# Step sizing: one step's (m, S) f32 score slab and its dequantized
+# (S, dim) corpus slab stay under these, so the product is a large GEMM
+# while the transient memory is bounded whatever the corpus size.
+_SCORE_SLAB_BYTES = 64 << 20
+_CORPUS_SLAB_BYTES = 256 << 20
+_MIN_STEP_ROWS = 1024
 
 
 def _round_up(x: int, m: int) -> int:
@@ -106,20 +79,11 @@ _K_CHUNK = 2048
 
 
 def feature_chunk(dim: int) -> int:
-    """Feature-axis (K) chunk width for this dim, post-128-padding.
+    """Feature-axis chunk width of the int4 packing layout.
 
-    dims whose padded width fits VMEM comfortably run in one chunk (the
-    historical layout, bit-identical programs); wider dims are processed
-    in _K_CHUNK-wide chunks along a third (minor) grid axis, partial dot
-    products accumulating in a VMEM scratch tile until the last chunk
-    runs the epilogue + selection.  Removes the old dim <= 8192 kernel
-    limit (beyond it the XLA fallback was used).
-
-    The single-chunk cap is 4096, not 8192: _pick_block_n only shrinks
-    the CORPUS tile, so a single-chunk 8192-wide 256-row query tile
-    (8.4 MB) plus a double-buffered corpus tile cannot fit the ~16 MB
-    VMEM at any bn — chunked mode caps the query tile at 128 rows and
-    bounds every resident tile.
+    Features are padded to a multiple of 128; widths up to 4096 pack as
+    one chunk, wider ones in 2048-wide chunks.  Saved int4 corpora carry
+    this layout, so it is fixed.
     """
     dp = _round_up(dim, 128)
     return dp if dp <= 4096 else _K_CHUNK
@@ -132,1644 +96,42 @@ def feature_geometry(dim: int):
     return ck, dpp, dpp // ck
 
 
-# ---------------------------------------------------------------------------
-# Strategy "extract": k masked-argmax extractions over the full tile.
-# ---------------------------------------------------------------------------
-
-
-def _select_extract(s, carry_vals, carry_idx, lane_n, n_base, k, kp, tm):
-    """carry <- top_k(carry u tile) by k full-width argmax extractions.
-
-    Tie-breaking is lowest-global-index-wins for free:
-      - argmax returns the FIRST (lowest-lane) maximum; tile lanes are in
-        index order, and carry entries with equal values were extracted
-        lowest-index-first on an earlier step (induction);
-      - on a carry-vs-tile tie the carry wins (>=), and every carry index
-        is from an earlier corpus tile, hence smaller.
-    """
-    cv = carry_vals
-    ci = carry_idx
-    lane_k = jax.lax.broadcasted_iota(jnp.int32, (tm, kp), 1)
-    out_v0 = jnp.full((tm, kp), _NEG_INF, dtype=jnp.float32)
-    out_i0 = jnp.full((tm, kp), _BIG_I32, dtype=jnp.int32)
-
-    def extract(t, state):
-        cv, s, out_v, out_i = state
-        mc = jnp.max(cv, axis=1)                              # (TM,) cheap
-        pc = jnp.argmax(cv, axis=1).astype(jnp.int32)
-        ms = jnp.max(s, axis=1)                               # full-width
-        # max + min-index-over-equality, NOT jnp.argmax, on the full-width
-        # side: Mosaic lowers argmax as an extra full reduce pass (~25% of
-        # kernel time at k=10), while the equality mask reuses the max
-        # already in hand.  (Same trick on the narrow carry side measured
-        # NEUTRAL at k=10 and 40% WORSE at k=100 — keep argmax there.)
-        eq_s = s == ms[:, None]
-        ps = jnp.min(jnp.where(eq_s, lane_n, _BIG_I32), axis=1)
-        use_c = mc >= ms
-        m = jnp.where(use_c, mc, ms)
-        hot_c = lane_k == pc[:, None]
-        g_c = jnp.sum(jnp.where(hot_c, ci, 0), axis=1)        # cheap gather
-        g = jnp.where(use_c, g_c, n_base + ps)
-        # exhausted row (every candidate -inf): emit the index sentinel —
-        # a consumed carry slot keeps its stale ci, which argmax over an
-        # all--inf cv would otherwise re-emit as a duplicate real index
-        g = jnp.where(m == _NEG_INF, _BIG_I32, g)
-        slot = lane_k == t
-        out_v = jnp.where(slot, m[:, None], out_v)
-        out_i = jnp.where(slot, g[:, None], out_i)
-        cv = jnp.where(use_c[:, None] & hot_c, _NEG_INF, cv)  # cheap
-        s = jnp.where(
-            (~use_c)[:, None] & (lane_n == ps[:, None]), _NEG_INF, s
-        )                                                     # full-width
-        return cv, s, out_v, out_i
-
-    # Small k unrolls fully (fastest: one basic block gives Mosaic full
-    # scheduling freedom); larger k uses a fori_loop unrolled 4x per
-    # iteration — a full k=100 unroll blows Mosaic's 16 MB scoped-vmem
-    # stack, while rolled-by-1 iterations cost ~2.6x per extraction in
-    # loop-boundary overhead.  Extractions beyond k land in carry slots
-    # k..kp-1, which are never read (kp is a multiple of 4 and k <= kp,
-    # so ceil(k/4)*4 <= kp always holds).
-    state = (cv, s, out_v0, out_i0)
-    if k <= 16:
-        for t in range(k):
-            state = extract(t, state)
-    else:
-        def extract4(t4, st):
-            for u in range(4):
-                st = extract(t4 * 4 + u, st)
-            return st
-
-        state = jax.lax.fori_loop(0, (k + 3) // 4, extract4, state)
-    return state[2], state[3]
-
-
-def _select_insert(s, carry_vals, carry_idx, lane_n, n_base, k, kp, tm):
-    """carry <- top_k(carry u tile) by candidate-count-bounded insertion.
-
-    The rebuild strategy (_select_extract) pays k full-width passes on
-    every tile that fires; but a tile can only contribute
-    cnt_row = |{s_row > kth_row}| entries to row r's top-k, and on the
-    late tiles of a big corpus E[cnt] ~ k*TN/n_seen is tiny.  So: one
-    count pass bounds a DYNAMIC fori_loop that extracts the tile's
-    candidates in descending order and merge-inserts each into the
-    sorted carry.  Total extraction work collapses from
-    O(k * tiles_fired) to O(sum_t min(k, max_row cnt_t)) ~ O(k log T)
-    plus one count pass per tile — the loop is skipped entirely when no
-    row has a candidate, subsuming tile pruning.
-
-    Correctness:
-      - values > kth_old are extracted before any others (descending
-        order), so min(max_row cnt, k) iterations exhaust every row's
-        possible contributions; rows finished early fail the per-row
-        insert predicate (v > current kth) and become no-ops;
-      - insertion keeps the carry sorted descending (induction: starts
-        all -inf), with pos = |{carry >= v}| placing v AFTER equal carry
-        values — lowest-global-index-wins is preserved exactly as in
-        _select_extract (equal carry entries come from earlier tiles or
-        lower lanes, hence smaller global indices; inserting past them
-        keeps index order within ties);
-      - a tie with the k-th value is dropped (strict >), matching the
-        rebuild strategy's carry-wins-ties rule.
-    """
-    lane_k = jax.lax.broadcasted_iota(jnp.int32, (tm, kp), 1)
-    kth = carry_vals[:, k - 1:k]                            # (TM, 1)
-    cnt = jnp.sum(jnp.where(s > kth, 1, 0), axis=1)         # full pass
-    t_tile = jnp.minimum(jnp.max(cnt), k)                   # dynamic bound
-
-    def body(_, st):
-        cv, ci, s = st
-        ms = jnp.max(s, axis=1)                             # full pass
-        eq = s == ms[:, None]
-        ps = jnp.min(jnp.where(eq, lane_n, _BIG_I32), axis=1)
-        gi = n_base + ps
-        s = jnp.where(lane_n == ps[:, None], _NEG_INF, s)   # consume
-        # merge-insert (ms, gi) into the sorted carry, rows that improve
-        ins = ms > cv[:, k - 1]                             # (TM,)
-        pos = jnp.sum(jnp.where(cv >= ms[:, None], 1, 0), axis=1)
-        keep = lane_k < pos[:, None]
-        place = lane_k == pos[:, None]
-        sh_v = jnp.concatenate([cv[:, :1], cv[:, :-1]], axis=1)
-        sh_i = jnp.concatenate([ci[:, :1], ci[:, :-1]], axis=1)
-        new_v = jnp.where(keep, cv, jnp.where(place, ms[:, None], sh_v))
-        new_i = jnp.where(keep, ci, jnp.where(place, gi[:, None], sh_i))
-        cv = jnp.where(ins[:, None], new_v, cv)
-        ci = jnp.where(ins[:, None], new_i, ci)
-        return cv, ci, s
-
-    cv, ci, _ = jax.lax.fori_loop(
-        0, t_tile, body, (carry_vals, carry_idx, s))
-    return cv, ci
-
-
-# ---------------------------------------------------------------------------
-# Strategy "stack": u-packed per-class best-D stacks + pop-merge (large k).
-# ---------------------------------------------------------------------------
-
-_INT_MIN = jnp.iinfo(jnp.int32).min
-_STACK_DEPTH = 8
-# Largest k the fused path serves (big-k gstack / extract with an
-# auto-raised carry width); beyond it dispatch falls back to XLA.
-_MAX_FUSED_K = 1024
-
-
-def effective_k_pad(k: int, cfg) -> int:
-    """Carry/output lane width for this k: cfg.k_pad (default 128) is
-    used verbatim while k fits it (including deliberately small widths —
-    tests and tuned configs pin them); beyond it the width auto-raises in
-    whole 128-lane groups so the fused path keeps serving up to
-    _MAX_FUSED_K."""
-    return cfg.k_pad if k <= cfg.k_pad else _round_up(k, _LANES)
-
-
-def max_fused_k(cfg) -> int:
-    """Largest k the fused path accepts for this config (dispatch falls
-    back to XLA above it)."""
-    return max(cfg.k_pad, _MAX_FUSED_K)
-
-
-# --- posu: order-isomorphic packing WITHOUT the 3-op u transform --------
-# For the quantized cosine tiers the epilogue can bias scores by +1.0
-# (folded into the existing FMA via an in-kernel (1, tn) row op on the
-# bias row), making every live score a non-negative float whose raw i32
-# bit pattern is already monotone — the per-element shift/and/xor of
-# _f32_to_u disappears from the gstack build.  Dead rows (pad tail,
-# masked) are encoded as _POSU_PAD = -1e-30: its bit pattern (-1.919e9
-# as i32) sits BELOW _POSU_CUT (-1.640e9), while the smallest nonzero
-# biased live score (f32 addition near -1.0 + 1.0 yields 0 or >= 2^-25)
-# has bits >= -1.292e9 — so `u <= _POSU_CUT` separates dead from live
-# with ~3e8 of margin on each side, and INT_MIN (unfilled stack slots)
-# is dead too.  Live scores within rounding of exact -1.0 bias to tiny
-# NEGATIVE floats whose raw patterns order reversed among themselves —
-# a tie-class inversion confined to values within 2^-24 of -1.0, far
-# inside the documented truncation exception.  The +1.0 bias moves the
-# packed-bits truncation to <= 127 ulps of the BIASED value (~3e-5
-# absolute near score 1.0, vs 1.5e-5 unbiased) — noise against the
-# int8/int4 quantization error that dominates these tiers, which is why
-# posu is scoped to them.
-_POSU_PAD = np.float32(-1e-30)
-_POSU_CUT = int(np.float32(-1e-20).view(np.int32))
-
-
-def _f32_to_u(bits):
-    """Monotone f32-bits -> sortable SIGNED i32 (an involution: applying
-    it to the result recovers the bits).  Positive floats keep their bit
-    pattern; negative floats get their low 31 bits inverted, so int32
-    compare == float compare (with -0.0 < +0.0, which never matters here:
-    a 0.0 score is produced identically on every path)."""
-    return bits ^ ((bits >> 31) & jnp.int32(0x7FFFFFFF))
-
-
-def _stack_geometry(block_n: int):
-    """(groups, low_bits, low_mask, depth): the group id is embedded in
-    the value's LOW MANTISSA BITS (reversed, so lower group == larger u
-    == wins max ties), which makes the per-class reduce a pure max/min
-    chain — no position tracking, the position IS in the value.  The
-    price is truncating scores by up to 2^low_bits - 1 ulps (<= 31 ulps
-    at 32 groups, ~4e-6 relative — under the bf16x3 matmul's own ~4e-6
-    and far inside the 1e-5 score contract)."""
-    groups = max(1, block_n // _LANES)
-    low_bits = max(1, (groups - 1).bit_length())
-    depth = min(_STACK_DEPTH, groups)
-    return groups, low_bits, (1 << low_bits) - 1, depth
-
-
-def _select_stack(s, carry_vals, carry_idx, extract_fb, n_base, k, kp, tm,
-                  block_n, row_live):
-    """carry <- top_k(carry u tile) via per-class sorted stacks (large k).
-
-    extract's cost is k FULL-WIDTH passes per tile; bucket's narrow merge
-    needs per-class depth >= the worst class collision count, which for
-    k ~ 100 over 128 classes is ~8 — too deep for its where-chain reduce.
-    This strategy makes depth-8 affordable by packing each value's group
-    id into its low mantissa bits (see _stack_geometry): the reduce is
-    then a pure jnp.maximum/minimum insertion-sort chain (2 VPU ops per
-    level per group, values only), producing per-class sorted stacks
-    st[0] >= st[1] >= ... >= st[D-1] in int-sortable u space.  The merge
-    pops k winners: each step takes max(st[0]) vs max(carry-u), consumes
-    the winner, and shifts the winning class's stack up one level — all
-    (tm, 128)-narrow ops, ~8x cheaper than a full-width pass at bn=4096.
-
-    Exactness: a row can only be wrong if >= D+1 of its new top-k fall
-    in ONE lane class of THIS tile; st[D] (the class's (D+1)-th best)
-    detects that exactly and routes the tile through the full-width
-    extraction, precisely like _select_bucket's fallback.  P(fire) ~
-    tm * C(k, D+1) / classes^D per tile — ~1e-5 per 128-row block at
-    k=100, D=8, 128 classes.  When groups <= D the stacks hold every
-    element of every class and the result is exact with no detection.
-
-    Tie contract: lowest-group-wins rides the reversed low bits, lowest
-    lane among equal u is taken by min-index extraction, and the carry
-    (earlier tiles = lower indices) wins clean-value ties because its
-    u is re-packed with all-ones low bits.
-    """
-    groups, low_bits, low_mask, depth = _stack_geometry(block_n)
-    det_depth = depth if groups > depth else None
-    n_levels = depth + (1 if det_depth is not None else 0)
-    clean = jnp.int32(~low_mask)
-
-    # ---- u-transform + group packing (full width) ----------------------
-    bits = jax.lax.bitcast_convert_type(s, jnp.int32)
-    u = _f32_to_u(bits)
-    giota = jax.lax.broadcasted_iota(jnp.int32, (tm, block_n), 1)
-    rev = jnp.int32(groups - 1) - (giota >> 7)  # lane // 128 = group id
-    u = (u & clean) | rev
-
-    # ---- per-class sorted stacks (values only; insertion chain) --------
-    st = [jnp.full((tm, _LANES), _INT_MIN, jnp.int32)
-          for _ in range(n_levels)]
-    for g in range(groups):
-        t = u[:, g * _LANES:(g + 1) * _LANES]
-        for i in range(n_levels):
-            hi = jnp.maximum(st[i], t)
-            t = jnp.minimum(st[i], t)
-            st[i] = hi
-    det = st[det_depth] if det_depth is not None else None
-    st = tuple(st[:depth])
-
-    # ---- carry snapshot in u space (low bits all-ones: wins clean ties)
-    cv = carry_vals[:]
-    ci = carry_idx[:]
-    cu = _f32_to_u(jax.lax.bitcast_convert_type(cv, jnp.int32))
-    cu = cu | jnp.int32(low_mask)
-    # empty carry slots (-inf) must stay BELOW every real tile value yet
-    # above stack-empty: u(-inf) is very negative already; nothing to do.
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tm, _LANES), 1)
-    lane_kp = jax.lax.broadcasted_iota(jnp.int32, (tm, kp), 1)
-    out_u0 = jnp.full((tm, kp), _INT_MIN, jnp.int32)
-    out_i0 = jnp.full((tm, kp), _BIG_I32, jnp.int32)
-    kth_u0 = jnp.full((tm,), _INT_MIN, jnp.int32)
-
-    def pop(t, state):
-        st, cu, out_u, out_i, kth_u = state
-        st0 = st[0]
-        mt = jnp.max(st0, axis=1)                       # (tm,) narrow
-        eq_t = st0 == mt[:, None]
-        ps = jnp.min(jnp.where(eq_t, lane, _BIG_I32), axis=1)
-        mc = jnp.max(cu, axis=1)
-        # first-max via eq + min-index (Mosaic lowers argmax only for f32)
-        eq_c = cu == mc[:, None]
-        pc = jnp.min(jnp.where(eq_c, lane_kp, _BIG_I32), axis=1)
-        use_c = mc >= mt
-        w_u = jnp.where(use_c, mc, mt)
-        g_t = jnp.int32(groups - 1) - (mt & jnp.int32(low_mask))
-        idx_t = n_base + g_t * _LANES + ps
-        hot_c = lane_kp == pc[:, None]
-        g_c = jnp.sum(jnp.where(hot_c, ci, 0), axis=1)
-        idx_w = jnp.where(use_c, g_c, idx_t)
-        slot = lane_kp == t
-        out_u = jnp.where(slot, w_u[:, None], out_u)
-        out_i = jnp.where(slot, idx_w[:, None], out_i)
-        kth_u = jnp.where(t == k - 1, w_u, kth_u)
-        cu = jnp.where(use_c[:, None] & hot_c, _INT_MIN, cu)
-        hot_t = eq_t & (lane == ps[:, None]) & (~use_c)[:, None]
-        new_st = tuple(
-            jnp.where(hot_t, st[i + 1], st[i]) for i in range(depth - 1)
-        ) + (jnp.where(hot_t, _INT_MIN, st[depth - 1]),)
-        return new_st, cu, out_u, out_i, kth_u
-
-    state = (st, cu, out_u0, out_i0, kth_u0)
-    if k <= 16:
-        for t in range(k):
-            state = pop(t, state)
-    else:
-        def pop4(t4, stt):
-            for uu in range(4):
-                stt = pop(t4 * 4 + uu, stt)
-            return stt
-
-        state = jax.lax.fori_loop(0, (k + 3) // 4, pop4, state)
-    _, _, out_u, out_i, kth_u = state
-
-    # ---- decode the whole panel at once ---------------------------------
-    u_clean = out_u & clean
-    vals = jax.lax.bitcast_convert_type(_f32_to_u(u_clean), jnp.float32)
-    # -inf scores (pad/mask rows) and never-written slots both decode to
-    # sentinels; the ceiling is the largest possible encoding of -inf.
-    # Computed at trace time (Mosaic has no scalar bitcast op).
-    ninf_bits = int(np.float32(_NEG_INF).view(np.int32))
-    ninf_u = jnp.int32(
-        (ninf_bits ^ ((ninf_bits >> 31) & 0x7FFFFFFF)) | low_mask
-    )
-    dead = out_u <= ninf_u
-    new_v = jnp.where(dead, _NEG_INF, vals)
-    new_i = jnp.where(dead, _BIG_I32, out_i)
-
-    if det is None:
-        carry_vals[:] = new_v
-        carry_idx[:] = new_i
-        return
-
-    # ---- exactness detection + static fallback (see _select_bucket) ----
-    # row_live masks PADDED query rows (mp > m): their scores are
-    # identically 0.0 for dot/cosine (zero pad rows), an all-tied row
-    # where every class's deepest level equals the k-th best — without
-    # the mask the fallback fires on EVERY tile whenever m % tm != 0,
-    # silently degrading the whole block to extract cost (mirrors
-    # _gstack_decode's m_valid guard).
-    kth_clean = (kth_u & clean)[:, None]
-    bad = jnp.max(jnp.where(
-        row_live & (det != _INT_MIN) & ((det & clean) >= kth_clean), 1, 0
-    ).astype(jnp.int32))
-
-    @pl.when(bad == 0)
-    def _():
-        carry_vals[:] = new_v
-        carry_idx[:] = new_i
-
-    @pl.when(bad != 0)
-    def _():
-        extract_fb(s, cv, ci)
-
-
-# ---------------------------------------------------------------------------
-# Strategy "gstack": stacks persisted ACROSS corpus tiles, one pop per block.
-# ---------------------------------------------------------------------------
-
-
-def _gstack_depth(k: int, cells: int = _LANES) -> int:
-    """Per-class stack depth for gstack at this k.  Exactness never
-    depends on the depth — the deepest level is the detector and a miss
-    always fires it — the depth only sets the FIRE RATE of the exact
-    re-run: P(fire/row) ~ C(k, L) / cells^(L-1) (>= L of a row's top-k
-    landing in one of the ``cells`` (segment, lane-class) cells).
-
-    cells == 128 (the classic single-segment envelope) uses the
-    round-2-measured table: a 1000-row batch fires well under 1% of the
-    time.  SEGMENTED corpora (> 128 global groups, cells = 128 * n_segs)
-    get MANY more cells, so collisions spread thinner and fewer levels
-    reach the same fire rate (target P(fire/row) <= 1e-7 — the fallback
-    is a full extract re-run, ruinous at multi-million-row scale): e.g.
-    k=100 over a 2M-row corpus needs 5 levels, not 9, nearly halving
-    both build cost and panel width."""
-    if k > _LANES:
-        return _bigk_depth(k, cells)
-    if cells <= _LANES:
-        for k_max, levels in ((10, 5), (16, 6), (32, 7), (64, 8)):
-            if k <= k_max:
-                return levels
-        return _STACK_DEPTH + 1  # 9, k <= 128
-    levels = 3
-    while (levels < _STACK_DEPTH + 1
-           and math.comb(k, levels) / cells ** (levels - 1) > 1e-7):
-        levels += 1
-    return levels
-
-
-# Stack-depth ceiling for the big-k (k > 128) gstack extension.  VMEM cost
-# at the cap: (32, tm<=128, 128) i32 stacks = 2 MB — inside _pick_block_n's
-# headroom.  A k whose required depth exceeds the cap routes to "extract".
-_BIGK_MAX_LEVELS = 32
-
-
-def _bigk_tail(k: int, cells: int, levels: int) -> float:
-    """P(any (segment, class) cell holds >= ``levels`` of a row's top-k)
-    <= cells * P(Binomial(k, 1/cells) >= levels), summed directly.  The
-    small-k union bound C(k, L)/cells^(L-1) is the first term of this sum
-    and collapses once the per-cell expectation k/cells approaches 1
-    (pigeonhole fattens the tail), so big k needs the real tail."""
-    p = 1.0 / cells
-    tail = 0.0
-    for i in range(levels, min(k, levels + 96) + 1):
-        tail += math.comb(k, i) * p ** i * (1.0 - p) ** (k - i)
-    return cells * tail
-
-
-def _bigk_depth(k: int, cells: int):
-    """Stack depth for k > 128: smallest level count whose miss
-    probability (binomial tail) meets the 1e-7/row fire-rate target,
-    floored at ceil(k/128) + 1 — the tile-prune gate reads level
-    ceil(k/128) - 1 (see _kernel: an element at or below the weakest
-    entry of the first ceil(k/128) levels has >= 128*ceil(k/128) >= k
-    better-or-tied-earlier elements in the panel), and the level below
-    the detector must exist for detection to stay meaningful."""
-    lo = -(-k // _LANES) + 1
-    for levels in range(lo, _BIGK_MAX_LEVELS + 1):
-        if _bigk_tail(k, cells, levels) <= 1e-7:
-            return levels
-    return _BIGK_MAX_LEVELS
-
-
-def _bigk_gstack_ok(k: int, total_groups: int) -> bool:
-    """Whether big-k gstack has a viable depth for this geometry: the
-    fire-rate target must be reachable within the level cap (a miss
-    re-runs the whole corpus as extract — ruinous if common)."""
-    if k > _MAX_FUSED_K:
-        return False
-    n_segs = max(1, -(-total_groups // _LANES))
-    cells = _LANES * n_segs if n_segs > 1 else _LANES
-    levels = _bigk_depth(k, cells)
-    return _bigk_tail(k, cells, levels) <= 1e-6
-
-
-def _gstack_geometry(total_groups: int, k: int):
-    """(low_bits, low_mask, depth, n_levels, n_segs) for the persistent
-    per-class stacks.
-
-    Single segment (total_groups <= 128): the group id packed into the
-    value's low mantissa bits is the GLOBAL 128-row group (reversed,
-    lower group = larger u = wins ties); low_bits <= 7, score truncation
-    <= 127 ulps ~ 1.5e-5 relative — inside the bf16x3 matmul's own error
-    and the 2e-5 score contract.  n_levels includes the frozen detection
-    level (the deepest one) unless the corpus has at most that many
-    groups per class, where the stacks are lossless.
-
-    SEGMENTED (total_groups > 128): the corpus splits into ceil(/128)
-    segments of 128 groups (16,384 rows); the packed id is the LOCAL
-    group within the current segment (low_bits = 7 always), stacks are
-    flushed to the segment's slab of a (m, n_segs*n_levels*128) HBM
-    panel and reset at each boundary, and one XLA finish spans all
-    segments.  Same truncation bound; every segment slab carries its own
-    detection level.  Tie note: WITHIN a segment lower group still wins
-    equal-score ties via the reversed bits, but ACROSS segments a
-    higher-segment row can out-sort a lower one (its local group id is
-    what's packed) — values stay exact, duplicate-score index order may
-    differ, the same documented exception as the stack/gstack
-    cross-level case."""
-    n_segs = max(1, -(-total_groups // _LANES))
-    if n_segs == 1:
-        low_bits = max(1, (total_groups - 1).bit_length())
-        n_levels = min(_gstack_depth(k), total_groups)
-        lossless = total_groups <= n_levels
-        depth = n_levels if lossless else n_levels - 1
-        return low_bits, (1 << low_bits) - 1, depth, n_levels, 1
-    n_levels = _gstack_depth(k, cells=_LANES * n_segs)
-    return 7, _LANES - 1, n_levels - 1, n_levels, n_segs
-
-
-def _gstack_ninf_u(low_mask: int):
-    """Largest possible packed encoding of -inf, at trace time (Mosaic
-    has no scalar bitcast op)."""
-    b = int(np.float32(_NEG_INF).view(np.int32))
-    return jnp.int32((b ^ ((b >> 31) & 0x7FFFFFFF)) | low_mask)
-
-
-def _gstack_update(st_ref, s, j, gpt, total_groups, low_mask, n_levels,
-                   tiles_per_seg: int = 0, posu: bool = False):
-    """Insert one corpus tile's scores into the persistent per-class
-    stacks (st_ref: (n_levels, TM, 128) i32 VMEM scratch, sorted
-    descending in u space per class).  The insertion chain is pure
-    jnp.maximum/minimum — position tracking rides the packed group bits,
-    so each level costs 2 VPU ops per group.  Levels round-trip VMEM once
-    per TILE (read all, chain in registers across groups, write all).
-
-    Segmented mode (tiles_per_seg > 0): the packed id is the LOCAL group
-    within the current 128-group segment — j % tiles_per_seg is the
-    tile's position inside its segment (tiles_per_seg * gpt == 128)."""
-    clean = jnp.int32(~low_mask)
-    bits = jax.lax.bitcast_convert_type(s, jnp.int32)
-    # posu scores are non-negative floats (dead = _POSU_PAD, still below
-    # everything live as raw i32): the bit pattern IS the order.
-    u = bits if posu else _f32_to_u(bits)
-    st = [st_ref[i] for i in range(n_levels)]
-    if tiles_per_seg:
-        # local group of slice g is (j % tiles_per_seg)*gpt + g
-        base_rev = (jnp.int32(_LANES - 1)
-                    - (j % tiles_per_seg) * jnp.int32(gpt))
-    else:
-        # global group of slice g is j*gpt + g (j is the traced tile idx)
-        base_rev = jnp.int32(total_groups - 1) - j * jnp.int32(gpt)
-    for g in range(gpt):
-        t = (u[:, g * _LANES:(g + 1) * _LANES] & clean) | (base_rev - g)
-        for i in range(n_levels):
-            hi = jnp.maximum(st[i], t)
-            t = jnp.minimum(st[i], t)
-            st[i] = hi
-    for i in range(n_levels):
-        st_ref[i] = st[i]
-
-
-def _chunked_top_k(f_panel, k):
-    """Exact top-k over a wide f32 panel as a chunked reduction tree.
-
-    Drop-in for ``lax.approx_max_k(f_panel, k, recall_target=1.0)`` /
-    ``lax.top_k``: returns (vals, positions) with positions indexing the
-    ORIGINAL panel columns.  Each chunk's exact top-k is a superset
-    filter — the union of per-chunk winners contains the global top-k —
-    so the tree is exact end to end.  Order among EQUAL values may
-    differ from the flat reduce (chunk position, not panel position,
-    breaks ties first), which stays inside the documented gstack
-    duplicate-index-order exception.
-
-    Chunks are padded with -inf; a padded slot can only surface in an
-    underfilled row, where the caller's dead-sentinel mapping (value
-    <= packed -inf) already overwrites both value and index.
-    """
-    m_rows, w = f_panel.shape
-    if k >= w:
-        # Structurally underfilled (fewer panel slots than k — e.g. a
-        # probe=1 scan whose visited rows < k): sort everything and pad
-        # to k with -inf, which the caller's dead-sentinel mapping
-        # already converts to (-inf, int32-max) result slots.
-        fv, sp = jax.lax.top_k(f_panel, w)
-        fv = jnp.pad(fv, ((0, 0), (0, k - w)), constant_values=_NEG_INF)
-        sp = jnp.pad(sp, ((0, 0), (0, k - w)))
-        return fv, sp
-    # k <= 16 never chunks: the flat reduce is already excellent at any
-    # width (v5e, (256, 160000) panel: flat 1.8-1.9 ms vs 14.6 through
-    # 2048-chunks — the per-chunk pass pays the full operand read for a
-    # tiny k, then a tree of gathers; tools/exp_finish2.py) — approx
-    # edges out top_k once the panel is wide.
-    if k <= 16:
-        if w > 8192:
-            return jax.lax.approx_max_k(f_panel, k, recall_target=1.0)
-        return jax.lax.top_k(f_panel, k)
-    # Chunk width: NARROW wins once the tree engages — the v5e
-    # PartialReduce has a cost cliff between 1024- and 2048-wide
-    # operands (k=100 over the 10M fast panel (256, 160k): chunk
-    # 512/1024/2048/4096 = 3.7/5.3/7.5/9.1 ms; over the 2M panel
-    # (256, 47k): 0.52/0.43/3.0 ms), and k=256/512 over (256, 480k)
-    # prefer 512-1024.  max(512, 2k) tracks those optima.  But the
-    # tree itself only pays on WIDE panels: the canonical k=512
-    # single-segment panel (2560 wide) ran 5.5 ms through chunks vs
-    # 0.55 flat — panels under max(8192, 4 chunks) reduce flat.
-    chunk = max(512, 2 * k)
-    if w <= max(8192, 4 * chunk):
-        return jax.lax.approx_max_k(f_panel, k, recall_target=1.0)
-
-    def reduce_k(x):
-        # approx_max_k with recall_target=1.0 is exact (PartialReduce
-        # degenerates to full reduction) and measured faster than
-        # lax.top_k for k > 16 (0.227 vs 0.370 ms on the canonical
-        # (1024, 1152) k=100 panel); top_k wins at small k.
-        if k > 16:
-            return jax.lax.approx_max_k(x, k, recall_target=1.0)
-        return jax.lax.top_k(x, k)
-
-    nch = -(-w // chunk)
-    wp = nch * chunk
-    if wp != w:
-        f_panel = jnp.pad(f_panel, ((0, 0), (0, wp - w)),
-                          constant_values=_NEG_INF)
-    fv, sp = reduce_k(f_panel.reshape(m_rows, nch, chunk))
-    pos = sp + (jnp.arange(nch, dtype=jnp.int32) * chunk)[None, :, None]
-    vals = fv.reshape(m_rows, nch * k)
-    pos = pos.reshape(m_rows, nch * k)
-    while vals.shape[1] > chunk:
-        w2 = vals.shape[1]
-        nch2 = -(-w2 // chunk)
-        wp2 = nch2 * chunk
-        if wp2 != w2:
-            vals = jnp.pad(vals, ((0, 0), (0, wp2 - w2)),
-                           constant_values=_NEG_INF)
-            pos = jnp.pad(pos, ((0, 0), (0, wp2 - w2)))
-        fv, sp = reduce_k(vals.reshape(m_rows, nch2, chunk))
-        pos = jnp.take_along_axis(pos.reshape(m_rows, nch2, chunk), sp,
-                                  axis=2)
-        vals = fv.reshape(m_rows, nch2 * k)
-        pos = pos.reshape(m_rows, nch2 * k)
-    fv, sp = reduce_k(vals)
-    return fv, jnp.take_along_axis(pos, sp, axis=1)
-
-
-def _gstack_fast_levels(k: int, n_segs: int, n_levels: int,
-                        m_valid: int) -> int:
-    """How many stack levels the segmented finish reads on its FAST pass.
-
-    The finish only needs level L of a (segment, class) cell when >= L+1
-    of a row's top-k collide in that one cell; reading fewer levels than
-    the kernel keeps is exact as long as a detector over the unread
-    levels triggers a full-panel re-finish (cheap: the panel is already
-    in HBM — no kernel re-run).  The fast depth is the smallest level
-    count whose batch-level re-finish probability (binomial collision
-    tail x live rows) stays under 1e-2 — expected re-finish cost ~1% of
-    one full finish — floored at ceil(k/128) (shallower could not even
-    hold k entries of a single-cell pile-up) and capped at n_levels
-    (where the fast pass IS the full pass and no second detector is
-    needed).  More cells (bigger corpora) spread collisions thinner, so
-    exactly where panels get wide the fast pass reads a smaller
-    fraction: 10M rows k=100 b256 reads 2 of 4 levels; 2M reads 3 of 5.
-    """
-    cells = _LANES * n_segs
-    lo = min(n_levels, max(1, -(-k // _LANES)))
-    for lp in range(lo, n_levels):
-        if m_valid * _bigk_tail(k, cells, lp + 1) <= 1e-2:
-            return lp
-    return n_levels
-
-
-def _gstack_decode(u_panel, k, total_groups, low_mask, depth, n_levels,
-                   m_valid, n_segs: int = 1, posu: bool = False):
-    """XLA-side finish for the gstack kernel: top-k over the raw u panel,
-    decode, and the exactness flag.  Runs OUTSIDE the Pallas kernel —
-    measured 0.02 ms for lax.top_k(128) on a (1024, 1152) f32 panel, vs
-    ~3 µs per SEQUENTIAL in-kernel pop step (a k-pop merge at k=100 cost
-    more than the whole per-tile extract strategy it replaced).  Two
-    measured traps baked in here:
-
-      - lax.top_k on S32 lowers ~20x slower than on F32 (0.36 ms vs
-        0.02 on the (1024, 1152) panel), so the panel is mapped to f32
-        through the order isomorphism (the _f32_to_u involution) first.
-        Dead entries (<= any packed -inf) are collapsed to the exact
-        -inf encoding beforehand — their raw group bits would decode to
-        NaN, which is unordered and breaks top_k.
-      - detection must ignore PADDED query rows (m..mp): their scores
-        are identically 0.0 (zero rows), an all-tied row where every
-        class's deepest level equals the k-th best — firing the exact
-        re-run on every call.
-
-    u ordering is exactly the search order: (truncated score desc, global
-    group asc via the reversed packed bits); two distinct corpus rows in
-    the same class always differ in group, so equal u across panel slots
-    means same group + same class-lane order — and lax.top_k breaks ties
-    by LOWER panel position, which within a level slab is lane order,
-    i.e. ascending corpus index.  Returns (vals, idx, bad) with dead
-    slots (never filled / masked / pad) as (-inf, int32-max) sentinels.
-    """
-    clean = jnp.int32(~low_mask)
-    if posu:
-        # posu panels hold RAW bit patterns of non-negative biased
-        # scores; dead (pad/masked/unfilled) entries sit at or below
-        # _POSU_CUT.  The dead-collapse target is the raw -inf pattern:
-        # f_sub needs dead slots to sort below every live float.
-        assert n_segs > 1, "posu is scoped to segmented gstack"
-        ninf_u = jnp.int32(_POSU_CUT)
-        ninf_exact = jnp.int32(int(np.float32(_NEG_INF).view(np.int32)))
-    else:
-        ninf_u = _gstack_ninf_u(low_mask)
-        ninf_exact = jnp.int32(
-            int(np.float32(_NEG_INF).view(np.int32))
-            ^ ((int(np.float32(_NEG_INF).view(np.int32)) >> 31)
-               & 0x7FFFFFFF)
-        )
-    if n_segs > 1:
-        # Segmented finish: fast pass over the first lp levels of every
-        # slab; a detector over the unread levels (same >= kth rule as
-        # the kernel-fallback detector, against the fast pass's kth —
-        # a LOWER bound on the true kth, so never a false negative)
-        # re-finishes the full panel in the rare collision case.  The
-        # full pass keeps the deepest-level detector that can still
-        # fire the exact kernel re-run.
-        slab = n_levels * _LANES
-        m_rows = u_panel.shape[0]
-
-        def seg_finish(lv: int):
-            # Slice the fast levels BEFORE the dead-collapse + u->f
-            # transform, and keep both inside this function: seg_finish
-            # is called from the lax.cond branch bodies, so the
-            # full-panel transform traces into the rare re-finish
-            # branch instead of becoming an eagerly-computed cond
-            # operand (free variables of a branch closure are hoisted
-            # and evaluated unconditionally).
-            if lv == n_levels:
-                u_sub, sub_w = u_panel, slab
-            else:
-                sub_w = lv * _LANES
-                u_sub = u_panel.reshape(
-                    m_rows, n_segs, n_levels, _LANES
-                )[:, :, :lv, :].reshape(m_rows, n_segs * sub_w)
-            u_l = jnp.where(u_sub <= ninf_u, ninf_exact, u_sub)
-            if posu:
-                # raw patterns ARE f32-ordered once dead is collapsed
-                # to -inf; no involution on either side of the top-k.
-                f_sub = jax.lax.bitcast_convert_type(u_l, jnp.float32)
-                fv, sp = _chunked_top_k(f_sub, k)
-                sv = jax.lax.bitcast_convert_type(fv, jnp.int32)
-                dead = fv == _NEG_INF
-                vals = jax.lax.bitcast_convert_type(
-                    sv & clean, jnp.float32) - 1.0
-                # dead k-th slots must compare BELOW every live deep
-                # entry (underfilled rows pull in any live candidate);
-                # the collapsed -inf pattern (-8388608) would not.
-                sv = jnp.where(dead, jnp.int32(_INT_MIN), sv)
-            else:
-                f_sub = jax.lax.bitcast_convert_type(
-                    _f32_to_u(u_l), jnp.float32)
-                fv, sp = _chunked_top_k(f_sub, k)
-                sv = _f32_to_u(
-                    jax.lax.bitcast_convert_type(fv, jnp.int32))
-                dead = sv <= ninf_u
-                vals = jax.lax.bitcast_convert_type(
-                    _f32_to_u(sv & clean), jnp.float32)
-            seg = sp // jnp.int32(sub_w)
-            spf = seg * jnp.int32(slab) + sp % jnp.int32(sub_w)
-            grp = seg * _LANES + (jnp.int32(_LANES - 1)
-                                  - (sv & jnp.int32(low_mask)))
-            idx = grp * _LANES + jnp.remainder(spf, jnp.int32(_LANES))
-            vals = jnp.where(dead, _NEG_INF, vals)
-            idx = jnp.where(dead, _BIG_I32, idx)
-            return vals, idx, sv
-
-        def deep_bad(sv, lv0: int):
-            # Any LIVE entry in levels >= lv0 at or above the computed
-            # k-th best belongs in the result (or, for the deepest
-            # level, signals a possible overflow past the stacks).
-            # Padded query rows (identically-zero scores, all-tied)
-            # must not fire it.
-            det = u_panel.reshape(
-                m_rows, n_segs, n_levels, _LANES)[:, :, lv0:, :]
-            kth = (sv[:, k - 1:k] & clean)[:, :, None, None]
-            live_row = (
-                jnp.arange(m_rows) < m_valid)[:, None, None, None]
-            return jnp.any(
-                live_row & (det > ninf_u) & ((det & clean) >= kth))
-
-        def full_finish():
-            vals, idx, sv = seg_finish(n_levels)
-            return vals, idx, deep_bad(sv, n_levels - 1)
-
-        lp = _gstack_fast_levels(k, n_segs, n_levels, m_valid)
-        if lp >= n_levels:
-            return full_finish()
-        vals_f, idx_f, sv_f = seg_finish(lp)
-        return jax.lax.cond(
-            deep_bad(sv_f, lp),
-            full_finish,
-            lambda: (vals_f, idx_f, jnp.zeros((), jnp.bool_)),
-        )
-    # _chunked_top_k picks approx_max_k(recall_target=1.0) for k > 16
-    # (EXACT — the PartialReduce op degenerates to full reduction; docs:
-    # "when recall_target is 1.0 ... calculates the exact top-k" — and
-    # measured 0.227 ms vs lax.top_k's 0.370 on the canonical
-    # (1024, 1152) k=100 panel, tools/exp_finish.py) and lax.top_k
-    # otherwise, chunking wide panels into an exact
-    # reduction tree.  Order among EQUAL panel values may differ from
-    # top_k's lower-position rule, which only widens the already-
-    # documented gstack duplicate-index-order exception (values exact).
-    u_live = jnp.where(u_panel <= ninf_u, ninf_exact, u_panel)
-    f_panel = jax.lax.bitcast_convert_type(_f32_to_u(u_live), jnp.float32)
-    fv, sp = _chunked_top_k(f_panel, k)
-    sv = _f32_to_u(jax.lax.bitcast_convert_type(fv, jnp.int32))
-    vals = jax.lax.bitcast_convert_type(_f32_to_u(sv & clean), jnp.float32)
-    grp = jnp.int32(total_groups - 1) - (sv & jnp.int32(low_mask))
-    idx = grp * _LANES + jnp.remainder(sp, _LANES)
-    dead = sv <= ninf_u
-    vals = jnp.where(dead, _NEG_INF, vals)
-    idx = jnp.where(dead, _BIG_I32, idx)
-    if n_levels == depth:
-        # total_groups <= depth: the stacks hold EVERY element of every
-        # class — lossless, nothing to detect.
-        bad = jnp.zeros((), jnp.bool_)
-    else:
-        # A row is wrong only if >= n_levels+1 of its top-k share one
-        # lane class, in which case the deepest level (each class's
-        # n_levels-th best, itself a candidate in the panel) is >= the
-        # computed k-th best.  Packed -inf (masked/pad) never fires; a
-        # real deep value vs a dead k-th slot always does (it belongs in
-        # an underfilled result).
-        det = u_panel[:, (n_levels - 1) * _LANES:]
-        kth = sv[:, k - 1:k]
-        live_row = (
-            jnp.arange(u_panel.shape[0]) < m_valid
-        )[:, None]
-        bad = jnp.any(
-            live_row & (det > ninf_u) & ((det & clean) >= (kth & clean))
-        )
-    return vals, idx, bad
-
-
-def _gpop_finish(st_ref, vals_ref, idx_ref, k, kp, tm, total_groups,
-                 low_mask, n_levels, row_live):
-    """In-kernel finish for the "gpop" selection (gstack build, k <= 16):
-    pop the k winners straight out of the persistent per-class stacks on
-    the LAST corpus tile — no u panel in HBM, no second XLA dispatch, no
-    lax.top_k.  Each pop is narrow (tm, 128) work: the stacks are sorted
-    per class, so the global max always sits in st[0]; consuming it
-    shifts the winning class's stack up one level.  k <= 16 keeps the
-    pop chain statically unrolled (one basic block for Mosaic).
-
-    Exactness and tie semantics match _gstack_decode exactly: the
-    deepest level doubles as the detector (snapshot BEFORE popping —
-    pops through all n_levels levels, like top_k over the whole panel),
-    equal-u candidates resolve to the lowest lane (same group => same
-    score; lowest lane == lowest corpus index), and the documented
-    cross-level duplicate-order exception carries over.  The detection
-    verdict is signalled through vals[:, kp-1] (a sentinel slot the
-    k <= 16 contract never reads): 1.0 => the XLA side re-runs the
-    exact extract kernel under lax.cond.
-    """
-    clean = jnp.int32(~low_mask)
-    ninf_u = _gstack_ninf_u(low_mask)
-    st = [st_ref[i] for i in range(n_levels)]
-    detect = total_groups > n_levels
-    det = st[n_levels - 1] if detect else None
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tm, _LANES), 1)
-    lane_kp = jax.lax.broadcasted_iota(jnp.int32, (tm, kp), 1)
-    out_u = jnp.full((tm, kp), _INT_MIN, jnp.int32)
-    out_i = jnp.full((tm, kp), _BIG_I32, jnp.int32)
-    kth_u = None
-    for t in range(k):
-        top = st[0]
-        mt = jnp.max(top, axis=1)                        # (tm,) narrow
-        eq = top == mt[:, None]
-        ps = jnp.min(jnp.where(eq, lane, _BIG_I32), axis=1)
-        grp = jnp.int32(total_groups - 1) - (mt & jnp.int32(low_mask))
-        idx_t = grp * _LANES + ps
-        slot = lane_kp == t
-        out_u = jnp.where(slot, mt[:, None], out_u)
-        out_i = jnp.where(slot, idx_t[:, None], out_i)
-        if t == k - 1:
-            kth_u = mt
-        hot = eq & (lane == ps[:, None])
-        for i in range(n_levels - 1):
-            st[i] = jnp.where(hot, st[i + 1], st[i])
-        st[n_levels - 1] = jnp.where(hot, _INT_MIN, st[n_levels - 1])
-    u_clean = out_u & clean
-    vals = jax.lax.bitcast_convert_type(_f32_to_u(u_clean), jnp.float32)
-    dead = out_u <= ninf_u
-    vals = jnp.where(dead, _NEG_INF, vals)
-    out_i = jnp.where(dead, _BIG_I32, out_i)
-    if detect:
-        # Same rule as _gstack_decode: a live deepest-level value at or
-        # above the row's k-th best means >= n_levels+1 of that row's
-        # top-k could share one lane class — the stacks may have dropped
-        # a true winner.  Pad query rows are masked (row_live); a dead
-        # k-th slot fires on ANY live deep value (underfilled rows must
-        # recover dropped elements).
-        bad = jnp.max(jnp.where(
-            row_live & (det > ninf_u)
-            & ((det & clean) >= (kth_u & clean)[:, None]), 1, 0
-        ).astype(jnp.int32))
-        vals = jnp.where(
-            (lane_kp == kp - 1) & (bad > 0), 1.0, vals)
-    vals_ref[:] = vals
-    idx_ref[:] = out_i
-
-
-# ---------------------------------------------------------------------------
-# Strategy "bucket": lane-class top-3 reduce + narrow lexicographic merge.
-# ---------------------------------------------------------------------------
-
-
-def _bucket_top3(s, tm: int, groups: int, cw: int = _LANES):
-    """Per-lane-class best-3 values (positions for the best-2) over groups.
-
-    s: (TM, G*cw) with ``cw`` lanes per class (a multiple of 128; wider
-    classes quadratically cut the chance that >=3 of a row's top-k share
-    a class, which is what triggers the exact-fallback in
-    _select_bucket).  All slices are vreg-aligned; each group update is a
-    handful of single-vreg-row VPU ops.  Lowest group wins value ties, so
-    candidate order respects global index order within a lane.
-    """
-    m1 = s[:, 0:cw]
-    p1 = jnp.zeros((tm, cw), jnp.int32)
-    m2 = jnp.full((tm, cw), _NEG_INF, jnp.float32)
-    p2 = jnp.zeros((tm, cw), jnp.int32)
-    m3 = jnp.full((tm, cw), _NEG_INF, jnp.float32)
-    for g in range(1, groups):
-        sg = s[:, g * cw:(g + 1) * cw]
-        b1 = sg > m1
-        b2 = sg > m2
-        b3 = sg > m3
-        m3 = jnp.where(b2, m2, jnp.where(b3, sg, m3))
-        m2n = jnp.where(b1, m1, jnp.where(b2, sg, m2))
-        p2n = jnp.where(b1, p1, jnp.where(b2, g, p2))
-        m1 = jnp.where(b1, sg, m1)
-        p1 = jnp.where(b1, g, p1)
-        m2, p2 = m2n, p2n
-    return m1, p1, m2, p2, m3
-
-
-def _merge_narrow(cv, ci, mv, mi, k: int, kp: int, tm: int):
-    """New carry = top-k of carry (cv,ci) u candidates (mv,mi), both narrow.
-
-    Lexicographic (value desc, index asc) extraction so ties are exact.
-    Slots beyond k keep (-inf, BIG); only the first k are ever read.
-    """
-    lane_kp = jax.lax.broadcasted_iota(jnp.int32, (tm, kp), 1)
-    out_v0 = jnp.full((tm, kp), _NEG_INF, jnp.float32)
-    out_i0 = jnp.full((tm, kp), _BIG_I32, jnp.int32)
-
-    def step(t, state):
-        cv, ci, mv, mi, out_v, out_i = state
-        vk = jnp.max(cv, axis=1)
-        eqk = cv == vk[:, None]
-        ik = jnp.min(jnp.where(eqk, ci, _BIG_I32), axis=1)
-        vc = jnp.max(mv, axis=1)
-        eqc = mv == vc[:, None]
-        ic = jnp.min(jnp.where(eqc, mi, _BIG_I32), axis=1)
-        use_k = (vk > vc) | ((vk == vc) & (ik < ic))
-        v = jnp.where(use_k, vk, vc)
-        g = jnp.where(use_k, ik, ic)
-        # exhausted row: emit the index sentinel — on an all--inf tie the
-        # lexicographic rule would prefer a masked/pad row's REAL (lower)
-        # index over the carry's sentinel, leaking excluded rows
-        g = jnp.where(v == _NEG_INF, _BIG_I32, g)
-        slot = lane_kp == t
-        out_v = jnp.where(slot, v[:, None], out_v)
-        out_i = jnp.where(slot, g[:, None], out_i)
-        cv = jnp.where(eqk & (ci == g[:, None]) & use_k[:, None], _NEG_INF, cv)
-        mv = jnp.where(
-            eqc & (mi == g[:, None]) & (~use_k)[:, None], _NEG_INF, mv
-        )
-        return cv, ci, mv, mi, out_v, out_i
-
-    state = (cv, ci, mv, mi, out_v0, out_i0)
-    if k <= 16:
-        for t in range(k):
-            state = step(t, state)
-    else:
-        state = jax.lax.fori_loop(0, k, step, state)
-    return state[4], state[5]
-
-
-
-
-def _bucket_class_width(block_n: int) -> int:
-    """Lane-class width for the bucket reduce.
-
-    128 (one vreg of lanes), measured: 256-wide classes would halve the
-    exact-fallback trigger rate (C(k,3)/classes^2) and cost the same per
-    element in isolation — but combined WITH the pl.when fallback regions
-    they regress 0.19 -> 0.29 ms on the canonical k=10 workload (cw=256
-    alone: 0.197; regions alone at cw=128: 0.194; together: 0.288 —
-    plausibly a VMEM/register-pressure cliff from the 640-wide merge plus
-    the full-width extract body in one predicated program).  The fallback
-    fires rarely either way (~2 of 20 tiles on random canonical data)."""
-    return _LANES
-
-
-def _select_bucket(s, carry_vals, carry_idx, extract_fb, n_base, k, kp, tm,
-                   block_n, row_live):
-    """carry <- top_k(carry u tile), lane-class reduce + narrow merge.
-
-    One pass over the tile keeps each of the 128 lane classes' best-3
-    (positions for the best-2); the per-class best-2 form a 256-wide
-    candidate panel merged into the carry by a narrow lexicographic
-    extraction — both are cheap next to full-width re-scans.  Exactness:
-    a row's result can only be wrong if >=3 of its new top-k fall in ONE
-    lane class of THIS tile, which m3 (each class's 3rd best) detects
-    exactly: any detected row routes the whole tile through the exact
-    full-width extraction (``extract_fb``, reading the untouched carry).
-
-    The fallback is STATIC control flow (two pl.when regions): round 2
-    replaced round 1's dynamic lax.while_loop refill that re-reduced the
-    tile per round — measured 1.16 ms vs 0.147 ms without it on the
-    canonical k=10 workload (the while body kept the score tile live and
-    broke Mosaic's cross-grid-step pipelining), i.e. the repair cost ~7x
-    the selection it repaired.  The static version measures 0.194 ms on
-    the same workload (vs extract's 0.263): the detection's per-tile
-    scalar reduce costs ~2 us/tile of pipeline sync and the fallback
-    fires on ~2 of 20 (query-block, tile) pairs on random data —
-    P(fire) ~ tm * C(k,3) / classes^2 per tile.
-
-    This function both RETURNS nothing and WRITES the carry refs (unlike
-    the other strategies) because the two outcomes write disjointly.
-    """
-    cw = _bucket_class_width(block_n)
-    groups = block_n // cw
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tm, cw), 1)
-    cv = carry_vals[:]
-    ci = carry_idx[:]
-    m1, p1, m2, p2, m3 = _bucket_top3(s, tm, groups, cw)
-    cand_v = jnp.concatenate([m1, m2], axis=1)
-    cand_i = jnp.concatenate(
-        [n_base + p1 * cw + lane, n_base + p2 * cw + lane], axis=1
-    )
-    new_v, new_i = _merge_narrow(cv, ci, cand_v, cand_i, k, kp, tm)
-
-    if groups == 1:
-        # Every element of the tile was a candidate; always exact.
-        carry_vals[:] = new_v
-        carry_idx[:] = new_i
-        return
-
-    # Detection: some class's 3rd-best could belong in the top-k (>= so
-    # an equal-value-lower-index miss also fires; m3 > -inf so classes
-    # with <3 real elements never do — nothing was dropped there; a row
-    # whose k-th slot is still -inf fires on ANY finite m3, since every
-    # dropped element belongs in an underfilled carry).  int32 max-reduce
-    # rather than jnp.any: Mosaic's reduce_or proxy lowering materializes
-    # float constants with the *global* x64 setting and breaks under
-    # jax_enable_x64.  row_live masks PADDED query rows (mp > m): their
-    # all-0.0 dot/cosine scores are an all-tied row where m3 == kth on
-    # every tile — without the mask a block with any pad rows pays the
-    # extract fallback PLUS the bucket reduce on 100% of tiles.
-    kth = new_v[:, k - 1:k]
-    bad = jnp.max(jnp.where(
-        row_live & (m3 > _NEG_INF) & (m3 >= kth), 1, 0).astype(jnp.int32))
-
-    @pl.when(bad == 0)
-    def _():
-        carry_vals[:] = new_v
-        carry_idx[:] = new_i
-
-    @pl.when(bad != 0)
-    def _():
-        extract_fb(s, cv, ci)
-
-
-# ---------------------------------------------------------------------------
-# Kernel body and dispatcher
-# ---------------------------------------------------------------------------
-
-
-def _dot_nt(a, b, precision):
-    return jax.lax.dot_general(
-        a, b,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        precision=precision,
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _kernel(
-    *args,      # [tiles_ref (QB, P) i32 SMEM if use_tiles] then:
-                # q_ref  (TM, D)  queries tile (pre-scaled per metric);
-                #                 bf16x3 mode passes (TM, 2D): hi | lo
-                # c_ref  (TN, D)  corpus tile (pre-scaled per metric); idem.
-                #                 int8c mode passes int8 quantization codes
-                # cb_ref (1, TN)  per-corpus epilogue bias (euclid -|c|^2,
-                #                 pad -inf); int8c: (2, TN) scale | bias
-                # [mb_ref (1, TN) f32 0/1 if use_mask] + outputs + scratch:
-                # vals_ref (TM, KP), idx_ref (TM, KP), carry_vals,
-                # carry_idx [, acc (TM, TN) f32 partial-dot tile if nk > 1]
-    k: int,
-    kp: int,
-    block_n: int,
-    use_bias: bool,
-    use_mask: bool,
-    selection: str,
-    precision,
-    nk: int = 1,
-    prune: bool = False,
-    use_tiles: bool = False,
-    total_groups: int = 0,   # gstack only: global 128-row group count
-    posu: bool = False,      # gstack build on raw biased bit patterns
-    # True (unpadded) query count, for the exactness-fallback detectors.
-    # REQUIRED (keyword-only, no default): defaulting it to 0 would make
-    # every row_live mask all-False and silently disable the bucket/stack/
-    # gpop exact re-run — wrong results with no error.
-    m_valid: int,
-):
-    if use_tiles:
-        # Probed search (clustered corpus): grid axis 1 walks a per-query-
-        # block LIST of corpus-tile ids (scalar-prefetched, so only listed
-        # tiles are ever DMA'd from HBM); global indices come from the
-        # listed tile id, not the grid position.
-        tiles_ref, q_ref, c_ref, cb_ref, *rest = args
-    else:
-        tiles_ref = None
-        q_ref, c_ref, cb_ref, *rest = args
-    if use_mask:
-        mb_ref, *rest = rest
-    else:
-        mb_ref = None
-    carry_vals = carry_idx = vals_ref = idx_ref = st_ref = acc = None
-    n_segs = 1
-    if selection == "gstack":
-        # Single output: the raw u panel (TM, n_levels*128); the XLA side
-        # (_gstack_decode) does top-k + index decode + detection.
-        if nk > 1:
-            panel_ref, st_ref, acc = rest
-        else:
-            panel_ref, st_ref = rest
-        _, low_mask, depth, n_levels, n_segs = _gstack_geometry(
-            total_groups, k)
-    elif selection == "gpop":
-        # gstack build + in-kernel pop finish: standard (vals, idx)
-        # outputs, stacks as the only scratch (no carry, no panel).
-        if nk > 1:
-            vals_ref, idx_ref, st_ref, acc = rest
-        else:
-            vals_ref, idx_ref, st_ref = rest
-        _, low_mask, depth, n_levels, n_segs = _gstack_geometry(
-            total_groups, k)
-    elif nk > 1:
-        vals_ref, idx_ref, carry_vals, carry_idx, acc = rest
-    else:
-        vals_ref, idx_ref, carry_vals, carry_idx = rest
-    i0 = pl.program_id(0)  # at top level: program_id inside a pl.when
-    j = pl.program_id(1)   # body escapes the CPU interpret-mode lowering
-    n_j = pl.num_programs(1)
-    kf = pl.program_id(2) if nk > 1 else None
-    tm = q_ref.shape[0]
-
-    if selection in ("gstack", "gpop") and n_segs > 1:
-        # Segmented: stacks reset at every 128-group segment boundary
-        # (tiles_per_seg * gpt == 128), not just at j == 0.
-        tiles_per_seg = _LANES // (block_n // _LANES)
-        start = j % tiles_per_seg == 0
-    else:
-        tiles_per_seg = 0
-        start = j == 0
-
-    @pl.when(start if nk == 1 else start & (kf == 0))
-    def _():
-        if selection in ("gstack", "gpop"):
-            for i in range(n_levels):
-                st_ref[i] = jnp.full((tm, _LANES), _INT_MIN, jnp.int32)
-        else:
-            carry_vals[:] = jnp.full((tm, kp), _NEG_INF, dtype=jnp.float32)
-            carry_idx[:] = jnp.full((tm, kp), _BIG_I32, dtype=jnp.int32)
-
-    # --- MXU: raw dot products for this (corpus, K-chunk) tile --------------
-    if precision == "bf16x3":
-        # f32 accuracy from three full-rate bf16 MXU passes: each grid
-        # block arrives as bf16 [hi_i | lo_i] halves on the feature axis
-        # (f32 = hi + lo exactly; same HBM bytes as the f32 original).
-        # The dropped lo.lo term is ~2^-16 relative — far inside the 1e-5
-        # score contract.  XLA's own HIGHEST on f32 costs 6 passes.
-        dsplit = q_ref.shape[1] // 2
-        qh = q_ref[:, :dsplit]
-        ql = q_ref[:, dsplit:]
-        ch = c_ref[:, :dsplit]
-        cl = c_ref[:, dsplit:]
-        p = jax.lax.Precision.DEFAULT
-        d = _dot_nt(qh, ch, p) + (_dot_nt(qh, cl, p) + _dot_nt(ql, ch, p))
-    elif precision in ("bf16c", "int8c", "int4c"):
-        # Quantized-STORAGE corpus: "bf16c" (Corpus(storage="bf16"), half
-        # the HBM) carries only the hi half; "int8c" (storage="int8", a
-        # quarter of the HBM) carries per-row int8 codes converted to bf16
-        # here — int8 values are bf16-exact, so accuracy is bounded by the
-        # int8 quantization itself (the per-row scale rides cb_ref row 0).
-        # Queries stay hi|lo split in both modes, so the matmul is two
-        # bf16 passes either way.
-        dsplit = q_ref.shape[1] // 2
-        qh = q_ref[:, :dsplit]
-        ql = q_ref[:, dsplit:]
-        ch = c_ref[:]
-        if precision == "int8c":
-            ch = ch.astype(jnp.bfloat16)
-        elif precision == "int4c":
-            # int4 STORAGE (an eighth of the f32 HBM): each byte packs
-            # two signed nibbles — feature j low, feature j + ck/2 high —
-            # so the unpack is bit math in i32 (Mosaic has no i8 shifts)
-            # plus one concat, and features come back in original order.
-            lo, hi = _unpack_int4_i32(ch.astype(jnp.int32))
-            ch = jnp.concatenate([lo, hi], axis=1).astype(jnp.bfloat16)
-        p = jax.lax.Precision.DEFAULT
-        d = _dot_nt(qh, ch, p) + _dot_nt(ql, ch, p)
-    else:
-        d = _dot_nt(q_ref[:], c_ref[:], precision)
-
-    def epilogue_and_select(d):
-        # --- VPU epilogue: one fused pass covers the int8 per-row dequant
-        # scale (multiplicative), the euclidean -|c|^2 term, and the
-        # padding-tail mask (both additive) ----------------------------------
-        if precision in ("int8c", "int4c"):
-            if posu:
-                # posu (see _POSU_PAD): fold the +1.0 score bias into
-                # the SAME FMA by rewriting the bias row in-kernel — a
-                # (1, tn) row op, ~1/tm of an elementwise pass — with
-                # the -inf pad tail mapped to the finite dead encoding
-                # (straight -inf + 1.0 would stay -inf, whose raw
-                # pattern out-sorts live scores).
-                cb1 = cb_ref[1:2, :]
-                prow = jnp.where(cb1 == _NEG_INF,
-                                 jnp.float32(_POSU_PAD), cb1 + 1.0)
-                s = d * cb_ref[0:1, :] + prow
-            else:
-                s = d * cb_ref[0:1, :] + cb_ref[1:2, :]
-        elif use_bias:
-            s = d + cb_ref[:]
-        else:
-            s = d
-        if use_mask:
-            # Filter by SELECT, not arithmetic: a -inf bias on a masked row
-            # whose dot product is NaN/inf would poison the whole selection.
-            s = jnp.where(mb_ref[:] > 0, s,
-                          jnp.float32(_POSU_PAD) if posu else _NEG_INF)
-
-        if use_tiles:
-            n_base = tiles_ref[i0, j] * block_n
-        else:
-            n_base = j * block_n
-
-        if selection in ("gstack", "gpop"):
-            gpt = block_n // _LANES
-
-            def build():
-                _gstack_update(st_ref, s, j, gpt, total_groups, low_mask,
-                               n_levels, tiles_per_seg, posu)
-
-            if prune:
-                # Tile gate (exact): an element at or below the weakest
-                # entry of the first q = ceil(k/128) stack levels has
-                # >= 128*q >= k better-or-tied-earlier elements (each of
-                # the 128 classes holds q entries above it, all flushed
-                # to the panel; final stacks dominate prune-time stacks
-                # elementwise), so it cannot be top-k.  k <= 128 reads
-                # level 0 — the classic gate.  tau decodes the truncated
-                # bound, making the test conservative; a gate entry that
-                # is not a real element yet — INT_MIN (never filled) or
-                # packed -inf (masked/pad rows only) — decodes to NaN, so
-                # those force a build via the <= ninf_u guard (NaN
-                # comparisons are false, which would wrongly SKIP).
-                gate_lvl = min(-(-k // _LANES) - 1, n_levels - 1)
-                tau_u = jnp.min(st_ref[gate_lvl], axis=1, keepdims=True)
-                if posu:
-                    tau = jax.lax.bitcast_convert_type(
-                        tau_u & jnp.int32(~low_mask), jnp.float32)
-                    dead_gate = tau_u <= jnp.int32(_POSU_CUT)
-                else:
-                    tau = jax.lax.bitcast_convert_type(
-                        _f32_to_u(tau_u & jnp.int32(~low_mask)),
-                        jnp.float32)
-                    dead_gate = tau_u <= _gstack_ninf_u(low_mask)
-                rmax = jnp.max(s, axis=1, keepdims=True)
-                need = (rmax > tau) | dead_gate
-                upd = jnp.max(jnp.where(need, 1, 0).astype(jnp.int32))
-
-                @pl.when(upd == 1)
-                def _():
-                    build()
-            else:
-                build()
-
-            # Segmented gstack flushes its slab at every segment's last
-            # tile (the output index map rolls to the next slab after);
-            # single-segment and gpop finish once, on the last tile.
-            flush = (j == n_j - 1) if not tiles_per_seg else (
-                ((j + 1) % tiles_per_seg == 0) | (j == n_j - 1))
-
-            @pl.when(flush)
-            def _():
-                if selection == "gstack":
-                    for i in range(n_levels):
-                        panel_ref[:, i * _LANES:(i + 1) * _LANES] = \
-                            st_ref[i]
-                else:
-                    row_live = (
-                        i0 * tm
-                        + jax.lax.broadcasted_iota(jnp.int32, (tm, 1), 0)
-                    ) < m_valid
-                    _gpop_finish(st_ref, vals_ref, idx_ref, k, kp, tm,
-                                 total_groups, low_mask, n_levels,
-                                 row_live)
-            return
-
-        def extract_rows(r0, g):
-            # top-k of (carry u tile) for query rows [r0, r0+g) — rows are
-            # independent, so any row-disjoint gating composes with this.
-            lane = jax.lax.broadcasted_iota(jnp.int32, (g, block_n), 1)
-            new_v, new_i = _select_extract(
-                s[r0:r0 + g], carry_vals[r0:r0 + g, :],
-                carry_idx[r0:r0 + g, :], lane, n_base, k, kp, g,
-            )
-            carry_vals[r0:r0 + g, :] = new_v
-            carry_idx[r0:r0 + g, :] = new_i
-
-        def run_selection():
-            if selection in ("bucket", "stack"):
-                def extract_fb(s_, cv_, ci_):
-                    lane_n = jax.lax.broadcasted_iota(
-                        jnp.int32, (tm, block_n), 1)
-                    new_v, new_i = _select_extract(
-                        s_, cv_, ci_, lane_n, n_base, k, kp, tm)
-                    carry_vals[:] = new_v
-                    carry_idx[:] = new_i
-
-                row_live = (
-                    i0 * tm
-                    + jax.lax.broadcasted_iota(jnp.int32, (tm, 1), 0)
-                ) < m_valid
-                sel_fn = (_select_bucket if selection == "bucket"
-                          else _select_stack)
-                sel_fn(s, carry_vals, carry_idx, extract_fb,
-                       n_base, k, kp, tm, block_n, row_live)
-            elif selection == "insert":
-                lane_n = jax.lax.broadcasted_iota(
-                    jnp.int32, (tm, block_n), 1)
-                new_v, new_i = _select_insert(
-                    s, carry_vals[:], carry_idx[:], lane_n, n_base, k, kp,
-                    tm
-                )
-                carry_vals[:] = new_v
-                carry_idx[:] = new_i
-            else:
-                extract_rows(0, tm)
-
-        if selection == "insert":
-            # The candidate-count bound already skips tiles with nothing
-            # to contribute (its count pass costs what the prune gate's
-            # max pass would), so the prune gate is redundant here.
-            run_selection()
-        elif prune:
-            # Tile pruning (exact): this tile can only change the carry if
-            # some row's tile-max BEATS that row's current k-th best — a
-            # tie loses to the carry by lowest-index-wins, so strict > is
-            # the right test.  One max pass decides; later tiles of a
-            # large corpus mostly skip the k extraction passes entirely,
-            # collapsing selection cost from O(k*N) toward O(N).
-            ms2 = jnp.max(s, axis=1, keepdims=True)           # (TM, 1)
-            kth2 = carry_vals[:, k - 1:k]
-            need = jnp.where(ms2 > kth2, 1, 0).astype(jnp.int32)
-            gsz = _PRUNE_GROUP
-
-            if selection != "bucket" and tm > gsz and k <= 16:
-                # Row-GROUP pruning: a big query tile fires almost every
-                # corpus tile (any of TM rows updating re-runs all k
-                # extraction passes for the whole tile — lockstep
-                # amplification: P(fire) ~ 1-exp(-TM*k*TN/n_seen)).  Gate
-                # extraction per _PRUNE_GROUP-row group instead, cutting
-                # P(fire) per gated region while keeping region-entry
-                # overhead bounded (see _PRUNE_GROUP above for the
-                # measured granularity trade-off).  The skip test is
-                # per-row either way, so exactness is unchanged.
-                # k <= 16 only: at larger k nothing skips on big corpora
-                # anyway (a row's top-100 keeps updating for ~k·ln(T/k)
-                # of T tiles, so every 64-row group fires ~always) and
-                # splitting the fori_loop extraction across groups costs
-                # real time — measured 2M×256d k=100 batch-256: grouped
-                # 163 ms vs whole-tile-gated 140 ms.
-                for r0 in range(0, tm, gsz):
-                    g = min(gsz, tm - r0)  # tm is a multiple of 8, not gsz
-
-                    @pl.when(jnp.max(need[r0:r0 + g, :]) == 1)
-                    def _(r0=r0, g=g):
-                        extract_rows(r0, g)
-            else:
-                upd = jnp.max(need)
-
-                @pl.when(upd == 1)
-                def _():
-                    run_selection()
-        else:
-            run_selection()
-
-        @pl.when(j == n_j - 1)
-        def _():
-            vals_ref[:] = carry_vals[:]
-            idx_ref[:] = carry_idx[:]
-
-    if nk == 1:
-        epilogue_and_select(d)
-    else:
-        # K-chunked: accumulate partial dots in the scratch tile; the
-        # epilogue + selection run once, on the final chunk.
-        @pl.when(kf == 0)
-        def _():
-            acc[:] = d
-
-        @pl.when(kf != 0)
-        def _():
-            acc[:] = acc[:] + d
-
-        @pl.when(kf == nk - 1)
-        def _():
-            epilogue_and_select(acc[:])
-
-
-def _pick_block_n(dim: int, block_q: int, block_n: int, kp: int) -> int:
-    """Shrink the corpus tile until the working set fits comfortably in
-    VMEM.  Only one K-chunk of the feature axis is resident at a time
-    (feature_chunk), so very large dims stop collapsing the corpus tile."""
-    budget = 10 * 1024 * 1024  # leave headroom out of ~16 MB
-    ck, _, nk = feature_geometry(dim)
-    if nk > 1:
-        block_q = min(block_q, 128)  # must match _run_prepared's cap
-    bn = block_n
-    while bn > 128:
-        tile_bytes = (
-            # Q tile: one K-chunk; in chunked mode its block varies along
-            # the minor grid axis, so Mosaic double-buffers it too.
-            block_q * ck * 4 * (2 if nk > 1 else 1)
-            + bn * ck * 4 * 2          # C tile (double-buffered)
-            + block_q * bn * 4 * 2     # score tile + selection working set
-            + block_q * kp * 8 * 2     # carry + merge working set
-            + block_q * _LANES * 5 * 4 # bucket reduce state
-            + (block_q * bn * 4 if nk > 1 else 0)  # partial-dot scratch
-        )
-        if tile_bytes <= budget:
-            break
-        # keep the 128-lane-group invariant: the kernel's groups =
-        # bn // 128 floor would silently skip a tile's last partial
-        # group on bucket selection if halving broke the multiple
-        bn = max(128, bn // 2 // 128 * 128)
-    return max(bn, 128)
-
-
-def supports(q_shape, c_shape, dtype, k: int, cfg: SearchConfig) -> bool:
-    """Whether the Pallas kernel handles this problem (else XLA fallback).
-
-    The kernel runs correctly at ANY dim (K-chunked above 4096), but the
-    measured crossover on v5e says to use it above ``max_fused_dim`` only
-    when materializing the (m, n) score matrix would be the real
-    constraint: at 256x2048x12288, XLA normalize+matmul+top_k runs 401 us
-    vs the K-chunked kernel's 990 us (XLA streams the corpus once and its
-    huge-K matmul pipelines better), so raw speed favors XLA at high dim —
-    until m*n*4 bytes is large enough that the XLA path's dense score
-    matrix dominates HBM (or OOMs), where the fused kernel is the only
-    path that never builds it.
-    """
-    if jnp.dtype(dtype) != jnp.float32:
-        return False  # MXU kernel is f32; f64 path uses lax.top_k fallback
-    if k > max(cfg.k_pad, _MAX_FUSED_K):
-        # 128 < k <= _MAX_FUSED_K runs fused with an auto-raised carry
-        # width (effective_k_pad): big-k gstack on dense pow2 scans,
-        # "extract" elsewhere — either way without the XLA fallback's
-        # dense (m, n) score matrix.
-        return False
-    if q_shape[1] > cfg.max_fused_dim:
-        return q_shape[0] * c_shape[0] * 4 > cfg.fallback_score_bytes
-    return True
-
-
-def _split_hi_lo(x, ck: "Optional[int]" = None):
-    """f32 -> bf16 hi|lo halves concatenated on the feature axis
-    (chunk-interleaved when ``ck`` divides the width into several
-    K-chunks — see feature_chunk).
-
-    hi must be built by integer bit-masking, NOT x.astype(bf16)
-    round-tripped to f32: under --xla_allow_excess_precision (set by the
-    TPU runtime) the simplifier folds the narrow->widen convert pair and
-    lo silently becomes 0.  +0x8000 & mask = round-to-nearest in IEEE bit
-    space (the carry propagates into the exponent correctly), halving
-    |lo| vs truncation and quartering the dropped lo.lo term.
-    """
-    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
-    hi = jax.lax.bitcast_convert_type(
-        (bits + jnp.uint32(0x8000)) & jnp.uint32(0xFFFF0000),
-        jnp.float32,
-    )
-    lo = x - hi  # exact; its significand is <= 8 bits -> bf16-exact
-    hi = hi.astype(jnp.bfloat16)
-    lo = lo.astype(jnp.bfloat16)
-    if ck is None or ck == x.shape[1]:
-        return jnp.concatenate([hi, lo], axis=1)
-    # K-chunked layout: interleave at chunk granularity,
-    # [hi_0 | lo_0 | hi_1 | lo_1 | ...], so each (.., 2*ck) grid block
-    # is [hi_i | lo_i] and the kernel's in-block split works unchanged.
-    m, dpp = x.shape
-    nk = dpp // ck
-    h = hi.reshape(m, nk, ck)
-    low = lo.reshape(m, nk, ck)
-    return jnp.concatenate([h, low], axis=2).reshape(m, nk * 2 * ck)
-
-
-def _resolve_selection(selection: str, k: int, total_groups: int,
-                       use_tiles: bool, n_tiles: int,
-                       k_pad: int = 128, gpt: int = 1) -> str:
-    """Resolve selection="auto" by measured v5e regime (ARCHITECTURE.md
-    round-2/3 selection sweeps), with the problem geometry in hand (this
-    runs inside _run_prepared where the padded corpus size is known):
-
-      2 <= k <= 16, dense, <= 128 groups, k < k_pad
-                           -> "gpop"    (gstack build + in-kernel k-pop
-                              finish; 0.12-0.14 vs bucket's 0.22-0.26 ms
-                              on the canonical workload — round-3 sweep)
-      2 <= k <= 16, dense, > 128 groups, pow2 tiles
-                           -> "gstack"  (segmented; beats extract's
-                              group-pruned scan at every batch size:
-                              2M x 256d b8 2.8 vs 3.1, b256 7.5 vs
-                              15.2 ms)
-      k == 1, or k <= 16 probed/non-pow2, < 16 tiles
-                           -> "bucket"  (lane-class reduce + narrow
-                              merge; at k=1 measured 0.10 vs gpop's
-                              0.11-0.12 — the 5-level build loses to a
-                              single cheap reduce)
-      k <= 16, >= 16 tiles -> "extract" (its 64-row-group prune gating
-                              dominates probed/non-pow2 many-tile
-                              corpora: 2M rows batch-256 measured
-                              15.4 ms vs bucket's 29.2 — bucket prunes
-                              whole-tile only)
-      k  > 16, dense       -> "gstack"  — single-segment when the corpus
-                              spans <= 128 global 128-row groups (0.55
-                              vs extract's 2.90 ms at canonical k=100),
-                              SEGMENTED beyond that whenever the tile's
-                              group count divides 128 (128 % gpt == 0,
-                              i.e. power-of-two block_n — always true
-                              for the built-in tilings)
-      k  > 16, otherwise   -> "stack"   (per-tile stacks: probed scans
-                              and non-power-of-two custom tilings)
-
-    An explicit "gstack"/"gpop" outside its envelope raises rather than
-    silently degrading.
-    """
-    # Probed scans (round 5): gstack runs over the VISITED tile
-    # sequence — grid axis 1 walks the tile list either way, so the
-    # per-128-group segmentation, stacks, flush, and detection are the
-    # dense machinery verbatim with "group" meaning visited group; only
-    # the decode maps visited ids back through the tile list.  The
-    # group count that sizes stacks/segments/fire-rates is therefore
-    # the visited one.
-    groups = n_tiles * gpt if use_tiles else total_groups
-    segmentable = groups <= _LANES or _LANES % gpt == 0
-    if selection == "auto":
-        if k <= 16:
-            if 2 <= k and not use_tiles:
-                if total_groups <= _LANES and k < k_pad:
-                    return "gpop"
-                if segmentable:
-                    # segmented gstack beats extract's group-pruned scan
-                    # at every batch size measured (2M x 256d: b8 2.8 vs
-                    # 3.1, b64 k16 3.1 vs 6.2, b256 7.5 vs 15.2 ms)
-                    return "gstack"
-            return "bucket" if n_tiles < 16 else "extract"
-        if segmentable and k <= _LANES:
-            return "gstack"
-        if k > _LANES:
-            # Big-k (128 < k <= _MAX_FUSED_K): gstack wins on pow2
-            # scans (dense or probed) when a stack depth with a sane
-            # fire rate exists (binomial-tail math, _bigk_depth);
-            # non-pow2 tilings and depth-capped geometries run
-            # "extract" with the auto-raised carry width (k full
-            # extraction passes: correct at any k <= kp, vs the XLA
-            # fallback's dense (m, n) score matrix).
-            if segmentable and _bigk_gstack_ok(k, groups):
-                return "gstack"
-            return "extract"
-        return "stack"
-    if k > _LANES and selection in ("bucket", "stack", "insert"):
-        raise ValueError(
-            f"selection={selection!r} supports k <= {_LANES}; use "
-            "'auto', 'extract', or 'gstack' for larger k"
-        )
-    if selection == "gpop" and (
-        use_tiles or total_groups > _LANES or k > 16 or k >= k_pad
-    ):
-        raise ValueError(
-            "selection='gpop' requires a dense (non-probed) scan over at "
-            f"most {_LANES * _LANES} padded corpus rows with k <= 16 and "
-            f"k < k_pad (the kp-1 slot carries the detection flag); got "
-            f"{total_groups} groups, k={k}, k_pad={k_pad}"
-            + (" (probed)" if use_tiles else "") + " — use selection='auto'"
-        )
-    if selection == "gstack" and (
-        not segmentable or k > _MAX_FUSED_K
-        or (k > _LANES and not _bigk_gstack_ok(k, groups))
-    ):
-        # The prune gate reads the first ceil(k/128) stack levels (an
-        # element at or below their weakest entry has >= 128*ceil(k/128)
-        # >= k better-or-tied elements in its segment, so it cannot be
-        # top-k) — sound at any k the depth math admits; beyond
-        # _MAX_FUSED_K, or where the binomial-tail fire rate cannot meet
-        # target within the level cap, gstack refuses rather than
-        # silently degrading.  Segmentation additionally needs the
-        # tile's group count to divide 128 so segment boundaries align
-        # with tile boundaries.
-        raise ValueError(
-            "selection='gstack' requires "
-            f"k <= {_MAX_FUSED_K} (and a viable stack depth for this "
-            f"geometry), and beyond {_LANES} scanned groups "
-            f"a power-of-two corpus tile (128 %% groups-per-tile == 0); "
-            f"got {groups} groups, k={k}, {gpt} groups/tile"
-            + (" (probed)" if use_tiles else "") + " — use selection='auto'"
-        )
-    return selection
-
-
-def effective_tiles(cfg: SearchConfig, k: int):
-    """(block_q, block_n) for this problem.
-
-    Large k pays the extraction loop once per corpus tile, so fewer,
-    bigger tiles win (measured 1.5x at k=100: bn=4096/bq=128 vs the
-    k<=16 default bn=2048/bq=256).  Only applies when the user left the
-    tiling at its compiled defaults.
-    """
-    defaults = (SearchConfig.__dataclass_fields__["block_q"].default,
-                SearchConfig.__dataclass_fields__["block_n"].default)
-    if cfg.auto_tile and k > 16 and (cfg.block_q, cfg.block_n) == defaults:
-        return 128, 4096
-    return cfg.block_q, cfg.block_n
-
-
-def corpus_tile_rows(dim: int, cfg: SearchConfig, k: int = 1) -> int:
-    """The corpus tile height the kernel will use (prep must pad to it)."""
-    bq, bn = effective_tiles(cfg, k)
-    return _pick_block_n(_round_up(dim, 128), bq, bn,
-                         effective_k_pad(k, cfg))
-
-
-def query_tile_rows(m: int, dim: int, cfg: SearchConfig, k: int = 1) -> int:
-    """The query tile height the kernel will use for an m-query batch —
-    the probed path needs it to shape its (n_query_blocks, P) tile list
-    (n_query_blocks = round_up(m, this) // this).  Must mirror
-    _run_prepared's tm computation exactly."""
-    bq, _ = effective_tiles(cfg, k)
-    _, _, nk = feature_geometry(dim)
-    if nk > 1:
-        bq = min(bq, 128)
-    return min(bq, _round_up(m, 8))
-
-
 def pad_mask_row(mask, width: int):
-    """(n,) bool mask -> (1, width) with the padded tail excluded."""
-    mask = jnp.asarray(mask).astype(bool)
-    return jnp.pad(
-        mask.reshape(1, -1), ((0, 0), (0, width - mask.shape[0])),
-        constant_values=False,
-    )
+    """(n,) bool mask -> (width,) with the padded tail excluded."""
+    mask = jnp.asarray(mask).astype(bool).reshape(-1)
+    return jnp.pad(mask, (0, width - mask.shape[0]), constant_values=False)
 
 
 def _unpack_int4_i32(p32):
-    """Sign-extended nibble pair from an int32-widened packed byte.
-    Mosaic cannot shift i8 vectors, so all bit math runs in i32."""
+    """Sign-extended nibble pair from an int32-widened packed byte."""
     lo = ((p32 & 0xF) ^ 8) - 8
     hi = (((p32 >> 4) & 0xF) ^ 8) - 8
     return lo, hi
 
 
-def dequant_int4(packed: jax.Array, scales: jax.Array, dim: int):
-    """Dense f32 rows from nibble-packed codes (the single inverse of
-    quantize_int4's layout — change the layout here and everywhere)."""
-    ck, dpp, nk = feature_geometry(dim)
-    rows = packed.shape[0]
-    p32 = packed.astype(jnp.int32).reshape(rows, nk, ck // 2)
+def _int4_codes(packed, dpp: int):
+    """(..., dpp // 2) packed bytes -> (..., dpp) int32 codes in feature
+    order (the single inverse of quantize_int4's layout)."""
+    ck, dpp, nk = feature_geometry(dpp)
+    lead = packed.shape[:-1]
+    p32 = packed.astype(jnp.int32).reshape(*lead, nk, ck // 2)
     lo, hi = _unpack_int4_i32(p32)
-    codes = jnp.concatenate([lo, hi], axis=2).reshape(rows, dpp)[:, :dim]
+    return jnp.concatenate([lo, hi], axis=-1).reshape(*lead, dpp)
+
+
+def dequant_int4(packed: jax.Array, scales: jax.Array, dim: int):
+    """Dense f32 rows from nibble-packed codes."""
+    _, dpp, _ = feature_geometry(dim)
+    codes = _int4_codes(packed, dpp)[:, :dim]
     return codes.astype(jnp.float32) * scales[:, None]
 
 
 def quantize_int4(c: jax.Array, ck: int):
-    """Per-row symmetric int4 quantization, nibble-packed per K-chunk.
+    """Per-row symmetric int4 quantization, nibble-packed per chunk.
 
     Packing layout (per ck-wide feature chunk): byte j holds feature j in
-    its LOW nibble and feature j + ck/2 in its HIGH nibble, so the kernel
-    unpacks with two shifts and one concat — features come back in
-    original order, and the hi|lo-split queries need no permutation.
+    its LOW nibble and feature j + ck/2 in its HIGH nibble, so unpacking
+    is two shifts and one concat, and features come back in order.
     Codes are in [-7, 7] (the -8 slot unused, symmetric);
     row ~= codes * scale with scale = max|row| / 7.
     Returns (packed (n, dpp//2) int8, scales (n,) f32).
@@ -1789,19 +151,19 @@ def quantize_int4(c: jax.Array, ck: int):
     return packed.reshape(n, dpp // 2), scale[:, 0]
 
 
-def prepare_int4_bias(packed: jax.Array, scales: jax.Array, metric,
-                      n_valid) -> jax.Array:
-    """The (2, rows) scale|bias operand for an int4 shared-storage corpus
-    (the packed buffer IS the prepared cp) — int4 analog of
-    prepare_int8_bias.  Norms are computed straight from the nibbles
-    (feature order is irrelevant to a sum of squares)."""
+def _quant_bias(code_sumsq, scales, metric, n_valid,
+                eps: float = 0.0) -> jax.Array:
+    """(2, rows) scale|bias epilogue operand of a quantized corpus.
+
+    For cosine the dequant scale cancels against the row norm, so the
+    scale row is the inverse code norm (0 at norm <= ``eps``); rows >=
+    ``n_valid`` (capacity reserve and padding, all zero) get a -inf bias.
+    """
     metric = Metric.parse(metric)
-    rows = packed.shape[0]
-    lo, hi = _unpack_int4_i32(packed.astype(jnp.int32))
-    sumsq = jnp.sum((lo * lo + hi * hi).astype(jnp.float32), axis=1)
-    code_norm = jnp.sqrt(sumsq)
+    rows = code_sumsq.shape[0]
+    code_norm = jnp.sqrt(code_sumsq)
     if metric is Metric.COSINE:
-        cs = jnp.where(code_norm > 0, 1.0 / code_norm, 0.0)
+        cs = jnp.where(code_norm > eps, 1.0 / code_norm, 0.0)
         cb = jnp.zeros((rows,), jnp.float32)
     elif metric is Metric.EUCLIDEAN:
         cs = scales.astype(jnp.float32)
@@ -1811,7 +173,18 @@ def prepare_int4_bias(packed: jax.Array, scales: jax.Array, metric,
         cb = jnp.zeros((rows,), jnp.float32)
     live = jnp.arange(rows) < n_valid
     cb = jnp.where(live, cb, -np.inf)
-    return jnp.stack([cs, cb], axis=0)
+    return jnp.stack([cs, cb], axis=0).astype(jnp.float32)
+
+
+def prepare_int4_bias(packed: jax.Array, scales: jax.Array, metric,
+                      n_valid) -> jax.Array:
+    """The (2, rows) scale|bias operand for an int4 corpus whose packed
+    buffer is used as the prepared corpus as is.  Norms come straight
+    from the nibbles (feature order does not matter to a sum of
+    squares).  Pure and traceable; ``n_valid`` may be traced."""
+    lo, hi = _unpack_int4_i32(packed.astype(jnp.int32))
+    sumsq = jnp.sum((lo * lo + hi * hi).astype(jnp.float32), axis=1)
+    return _quant_bias(sumsq, scales, metric, n_valid)
 
 
 def quantize_int8(c: jax.Array):
@@ -1830,80 +203,67 @@ def quantize_int8(c: jax.Array):
 def prepare_int8_bias(codes: jax.Array, scales: jax.Array, metric,
                       n_valid) -> jax.Array:
     """The (2, rows) scale|bias operand for an int8 corpus whose code
-    buffer IS already the prepared cp (rows tile-padded, features
-    128-padded): int8 prep never changes the codes — for cosine the
-    dequant scale cancels against the row norm — so only these two rows
-    need computing and the code buffer is shared, not copied (half the
-    HBM of a separate prepared form).  Rows >= ``n_valid`` (capacity
-    reserve and tile padding, all zero rows) get -inf bias.  Pure and
-    traceable; ``n_valid`` may be traced.
-    """
-    metric = Metric.parse(metric)
-    rows = codes.shape[0]
+    buffer is used as the prepared corpus as is (quantized prep never
+    changes the codes, so the buffer is shared, not copied).  Pure and
+    traceable; ``n_valid`` may be traced."""
     codesf = codes.astype(jnp.float32)
-    code_norm = jnp.sqrt(jnp.sum(codesf * codesf, axis=1))
-    if metric is Metric.COSINE:
-        cs = jnp.where(code_norm > 0, 1.0 / code_norm, 0.0)
-        cb = jnp.zeros((rows,), jnp.float32)
-    elif metric is Metric.EUCLIDEAN:
-        cs = scales.astype(jnp.float32)
-        cb = -(cs * code_norm) ** 2
-    else:
-        cs = scales.astype(jnp.float32)
-        cb = jnp.zeros((rows,), jnp.float32)
-    live = jnp.arange(rows) < n_valid
-    cb = jnp.where(live, cb, -np.inf)
-    return jnp.stack([cs, cb], axis=0)
+    return _quant_bias(jnp.sum(codesf * codesf, axis=1), scales, metric,
+                       n_valid)
 
 
-def prepare_corpus(c: jax.Array, metric, *, tn: int, precision: str,
+def _split_hi_lo(x):
+    """f32 -> (hi, lo) bf16 with hi + lo == x to ~2^-16 relative.
+
+    hi is built by integer bit-masking, not x.astype(bf16) round-tripped
+    to f32: an excess-precision simplification may fold that convert pair
+    and leave lo == 0.  +0x8000 & mask rounds to nearest in IEEE bit
+    space (the carry propagates into the exponent correctly).
+    """
+    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
+    hi = jax.lax.bitcast_convert_type(
+        (bits + jnp.uint32(0x8000)) & jnp.uint32(0xFFFF0000),
+        jnp.float32,
+    )
+    lo = x - hi  # exact; its significand is <= 8 bits -> bf16-exact
+    return hi.astype(jnp.bfloat16), lo.astype(jnp.bfloat16)
+
+
+def prepare_corpus(c: jax.Array, metric, *, precision: str,
                    scales: "Optional[jax.Array]" = None):
-    """Metric pre-scaling + padding + (bf16x3) splitting of the corpus.
+    """Metric pre-scaling and storage conversion of the corpus.
 
-    Pure and traceable; the Corpus handle jits this once and caches the
-    result on device so steady-state queries do zero per-call corpus work.
-    Returns (cp, cbp): the processed corpus and the epilogue-bias row.
+    Pure and traceable; the Corpus handle jits this once and keeps the
+    result on device so steady-state queries do no per-call corpus work.
+    Returns (cp, cbp): the prepared corpus and its epilogue operand —
+    (1, n) additive bias, or (2, n) scale|bias for the storage tiers.
 
-    ``precision="int8c"``: ``c`` is either f32 (quantized here) or int8
-    codes with ``scales`` (n,) from quantize_int8 (the Corpus storage
-    path — quantize once at ingestion, reuse the codes for every metric).
-    cp stays int8; cbp is (2, n_padded): a multiplicative per-row dequant
-    scale folded with the metric scaling, over the usual additive bias.
+    ``precision="int8c"``: ``c`` is f32 (quantized here) or int8 codes
+    with ``scales`` (n,) from quantize_int8.  ``"int4c"``: f32, or packed
+    codes with ``scales``.  ``"bf16c"``: the bf16 values.  The stored
+    values are returned unchanged as cp (cosine's inverse norm rides the
+    scale row, so nothing is quantized twice).
     """
     metric = Metric.parse(metric)
     n, dim = c.shape
     if precision == "int4c":
-        # int4: nibble-packed codes (n, dpp//2) + per-row scales; floats
-        # are quantized+packed here (one-shot path).  The packed buffer
-        # is returned unchanged as cp; only the (2, rows) scale|bias is
-        # computed (same shared-storage shape contract as int8c).
         if c.dtype != jnp.int8:
-            ck_real, _, _ = feature_geometry(dim)
-            c, scales = quantize_int4(c, ck_real)
-        np_ = _round_up(n, tn)
-        cp = jnp.pad(c, ((0, np_ - n), (0, 0)))
-        scales_p = jnp.pad(scales.astype(jnp.float32), (0, np_ - n),
-                           constant_values=1.0)
-        cbp = prepare_int4_bias(cp, scales_p, metric, n)
-        return cp, cbp
+            ck, _, _ = feature_geometry(dim)
+            c, scales = quantize_int4(c, ck)
+        return c, prepare_int4_bias(c, scales, metric, n)
     if precision == "int8c":
-        # int8: pad first, then share prepare_int8_bias (the same (2,
-        # rows) scale|bias math the shared-storage mesh path uses — the
-        # cosine dequant-scale cancellation lives in one place).
         if c.dtype != jnp.int8:
             c, scales = quantize_int8(c)
-        np_ = _round_up(n, tn)
-        _, dpp, _ = feature_geometry(dim)
-        cp = jnp.pad(c, ((0, np_ - n), (0, dpp - dim)))
-        scales_p = jnp.pad(scales.astype(jnp.float32), (0, np_ - n),
-                           constant_values=1.0)
-        cbp = prepare_int8_bias(cp, scales_p, metric, n)
-        return cp, cbp
-    if c.dtype != jnp.float32:
-        # bf16-stored corpora arrive quantized; prep math (norms, bias)
-        # runs in f32.  Chunked callers pass bf16 chunks so the f32 copy
-        # only ever exists at chunk granularity.
-        c = c.astype(jnp.float32)
+        return c, prepare_int8_bias(c, scales, metric, n)
+    if precision == "bf16c":
+        # The barrier pins the rounding to bf16: XLA may otherwise drop an
+        # f32 -> bf16 convert (excess precision) and run the product on
+        # the unrounded f32 rows at the default precision, i.e. in TF32.
+        c = jax.lax.optimization_barrier(c.astype(jnp.bfloat16))
+        cf = c.astype(jnp.float32)
+        return c, _quant_bias(jnp.sum(cf * cf, axis=1),
+                              jnp.ones((n,), jnp.float32), metric, n,
+                              eps=cosine_eps(jnp.float32))
+    c = c.astype(jnp.float32)
     if metric is Metric.COSINE:
         eps = cosine_eps(jnp.float32)
         cn = jnp.sqrt(jnp.sum(c * c, axis=1, keepdims=True))
@@ -1913,369 +273,269 @@ def prepare_corpus(c: jax.Array, metric, *, tn: int, precision: str,
         cb = -jnp.sum(c * c, axis=1).reshape(1, n)
     else:
         cb = jnp.zeros((1, n), jnp.float32)
-
-    np_ = _round_up(n, tn)
-    ck, dpp, _ = feature_geometry(dim)
-    cp = jnp.pad(c, ((0, np_ - n), (0, dpp - dim)))
     if precision == "bf16x3":
-        cp = _split_hi_lo(cp, ck)
-    elif precision == "bf16c":
-        cp = cp.astype(jnp.bfloat16)  # storage-quantized corpus, hi only
-    # Padding corpus rows get a -inf bias so they can never be selected
-    # (k <= n_corpus is guaranteed by the caller).  -inf, not a large
-    # finite value: legitimate scores can be arbitrarily negative, and
-    # pad-row dot products are exactly 0 (zero rows), so 0 + -inf = -inf
-    # with no NaN risk.
-    cbp = jnp.pad(cb, ((0, 0), (0, np_ - n)), constant_values=-np.inf)
-    return cp, cbp
+        c = jnp.concatenate(_split_hi_lo(c), axis=1)  # [hi | lo]
+    return c, cb
 
 
-def _run_prepared(
-    q: jax.Array,
-    cp: jax.Array,
-    cbp: jax.Array,
-    *,
-    k: int,
-    metric: Metric,
-    block_q: int,
-    tn: int,
-    k_pad: int,
-    precision: str,
-    selection: str,
-    use_bias: bool,
-    interpret: bool,
-    prune: str = "auto",
-    mask_p: "Optional[jax.Array]" = None,
-    tiles: "Optional[jax.Array]" = None,
-) -> Tuple[jax.Array, jax.Array]:
-    """Query-side prep + the pallas call, against a prepared corpus.
+# ---------------------------------------------------------------------------
+# The scan
+# ---------------------------------------------------------------------------
 
-    ``mask_p`` (1, n_padded) bool folds a per-row corpus filter into the
-    epilogue bias: excluded rows score -inf in maximize orientation.
 
-    ``tiles`` (n_query_blocks, P) int32 — probed search: each query block
-    visits only its listed corpus-tile ids (ascending, distinct), and only
-    those tiles leave HBM (scalar-prefetch index maps).  Exact over the
-    visited rows; the caller owns recall (which tiles to list).
-    """
-    m, dim = q.shape
+def _corpus_width(cp, precision: str) -> int:
+    """Logical feature width the prepared corpus multiplies against."""
+    if precision == "int4c":
+        return 2 * cp.shape[1]
+    if precision == "bf16x3":
+        return cp.shape[1] // 2
+    return cp.shape[1]
 
+
+def _prepare_queries(q, metric: Metric, precision: str, width: int):
+    """Metric scaling, feature padding and (split tiers) hi|lo split."""
+    q = q.astype(jnp.float32)
     if metric is Metric.COSINE:
         eps = cosine_eps(jnp.float32)
         qn = jnp.sqrt(jnp.sum(q * q, axis=1, keepdims=True))
         q = q * jnp.where(qn > eps, 1.0 / qn, 0.0)
     elif metric is Metric.EUCLIDEAN:
         q = 2.0 * q
+    q = jnp.pad(q, ((0, 0), (0, width - q.shape[1])))
+    if precision in _SPLIT_QUERY_TIERS:
+        return _split_hi_lo(q)
+    return (q,)
 
-    ck, dpp, nk = feature_geometry(dim)
-    if nk > 1:
-        # Chunked mode: the Q tile double-buffers along the K axis, so a
-        # 256-row tile at ck wide would blow scoped VMEM.
-        block_q = min(block_q, 128)
-    tm = min(block_q, _round_up(m, 8))
-    mp = _round_up(m, tm)
-    np_ = cbp.shape[1]
 
-    qp = jnp.pad(q, ((0, mp - m), (0, dpp - dim)))
-    if precision in ("bf16x3", "bf16c", "int8c", "int4c"):
-        qp = _split_hi_lo(qp, ck)
-        dk_q = 2 * ck  # each query grid block carries [hi_i | lo_i]
-        # corpus block width: hi|lo for bf16x3, nibble-packed for int4c
-        dk_c = {"bf16x3": 2 * ck, "int4c": ck // 2}.get(precision, ck)
-        kern_precision = precision
+def _bdot(a, b, precision):
+    """(B, m, d) x (B, S, d) -> (B, m, S) f32."""
+    return jax.lax.dot_general(
+        a, b,
+        dimension_numbers=(((2,), (2,)), ((0,), (0,))),
+        precision=precision,
+        preferred_element_type=jnp.float32,
+    )
+
+
+def _step_products(qs, slab, precision: str):
+    """Raw products (B, m, S) of the prepared queries with one slab.
+
+    highest: f32 at full precision.  bf16x3: three bf16 products over the
+    stored hi|lo corpus split (hi.hi + hi.lo + lo.hi; the dropped lo.lo
+    term is ~2^-16 relative).  bf16c/int8c/int4c: the hi|lo query pair
+    against the bf16-exact corpus values, two bf16 products; the per-row
+    scale is applied by the epilogue.  All accumulate in f32.
+    """
+    if precision == "highest":
+        return _bdot(qs[0], slab, _F32)
+    if precision == "bf16x3":
+        qh, ql = qs
+        w = qh.shape[-1]
+        ch, cl = slab[..., :w], slab[..., w:]
+        return (_bdot(qh, ch, _BF16)
+                + (_bdot(qh, cl, _BF16) + _bdot(ql, ch, _BF16)))
+    if precision == "int4c":
+        c = _int4_codes(slab, 2 * slab.shape[-1]).astype(jnp.bfloat16)
+    elif precision == "int8c":
+        # The barrier keeps XLA from fusing the int8 -> bf16 convert into
+        # the GEMM: that mixed-type GEMM returned garbage rows (1e34, NaN)
+        # on an H100 at 256-query batches, while the same product over a
+        # materialized bf16 slab is exact.
+        c = jax.lax.optimization_barrier(slab.astype(jnp.bfloat16))
     else:
-        dk_q = dk_c = ck
-        kern_precision = _PRECISION[precision]
-    cb_rows = cbp.shape[0]  # 2 in int8c mode (scale row | bias row)
+        c = slab
+    qh, ql = qs
+    return _bdot(qh, c, _BF16) + _bdot(ql, c, _BF16)
 
-    # Tile pruning: "auto" pays its extra per-tile max pass only when the
-    # corpus spans enough tiles for skips to dominate.
-    use_tiles = tiles is not None
-    n_tiles = tiles.shape[1] if use_tiles else np_ // tn
-    prune_eff = (n_tiles >= 16) if prune == "auto" else (prune == "on")
 
-    use_mask = mask_p is not None
-    selection = _resolve_selection(selection, k, np_ // _LANES, use_tiles,
-                                   n_tiles, k_pad, tn // _LANES)
+def _step_scores(qs, slab, cb, mk, precision: str):
+    """Epilogue over one step: (B, m, S) maximize-orientation scores.
 
-    # gstack's group universe: the visited tile sequence when probed
-    # (see _resolve_selection's round-5 note), the padded corpus
-    # otherwise.
-    gpt_g = tn // _LANES
-    g_groups = n_tiles * gpt_g if use_tiles else np_ // _LANES
-
-    # posu (quantized cosine tiers, segmented gstack, dense scan): the
-    # epilogue biases scores +1.0 so the build packs raw bit patterns —
-    # the 3-op _f32_to_u disappears from the hottest per-element loop.
-    # Scoped to tiers whose quantization error dominates the slightly
-    # widened (<= 127 ulps of the BIASED value, ~3e-5) truncation bound.
-    posu = (
-        selection == "gstack"
-        and metric is Metric.COSINE
-        and precision in ("int8c", "int4c")
-        and not use_tiles
-        and _gstack_geometry(np_ // _LANES, k)[4] > 1
-    )
-
-    # Probed search: index maps pull each visited corpus block's id from
-    # the scalar-prefetched tile list instead of the grid position, so
-    # unlisted tiles never leave HBM.  The prefetch ref arrives as the
-    # TRAILING index-map argument and the LEADING kernel operand.
-    if nk == 1:
-        grid = (mp // tm, n_tiles)
-        if use_tiles:
-            q_map = lambda i, j, t: (i, 0)        # noqa: E731
-            c_map = lambda i, j, t: (t[i, j], 0)  # noqa: E731
-            b_map = lambda i, j, t: (0, t[i, j])  # noqa: E731
-            o_map = lambda i, j, t: (i, 0)        # noqa: E731
-        else:
-            q_map = lambda i, j: (i, 0)  # noqa: E731
-            c_map = lambda i, j: (j, 0)  # noqa: E731
-            b_map = lambda i, j: (0, j)  # noqa: E731
-            o_map = lambda i, j: (i, 0)  # noqa: E731
+    ``cb`` (rows, B, S) is the bias, or scale|bias for quantized tiers;
+    ``mk`` (B, S) bool or None.  The mask filters by select, not by
+    arithmetic, so a NaN product on an excluded row cannot leak.
+    """
+    d = _step_products(qs, slab, precision)
+    if cb.shape[0] == 2:
+        s = d * cb[0][:, None, :] + cb[1][:, None, :]
     else:
-        # Third (minor, sequential) grid axis over feature chunks:
-        # partial dots accumulate in a VMEM scratch tile; selection runs
-        # on the final chunk.  Removes the old dim <= 8192 limit.
-        grid = (mp // tm, n_tiles, nk)
-        if use_tiles:
-            q_map = lambda i, j, kf, t: (i, kf)        # noqa: E731
-            c_map = lambda i, j, kf, t: (t[i, j], kf)  # noqa: E731
-            b_map = lambda i, j, kf, t: (0, t[i, j])   # noqa: E731
-            o_map = lambda i, j, kf, t: (i, 0)         # noqa: E731
-        else:
-            q_map = lambda i, j, kf: (i, kf)  # noqa: E731
-            c_map = lambda i, j, kf: (j, kf)  # noqa: E731
-            b_map = lambda i, j, kf: (0, j)  # noqa: E731
-            o_map = lambda i, j, kf: (i, 0)  # noqa: E731
-
-    in_specs = [
-        pl.BlockSpec((tm, dk_q), q_map),
-        pl.BlockSpec((tn, dk_c), c_map),
-        pl.BlockSpec((cb_rows, tn), b_map),
-    ]
-    operands = [qp, cp, cbp]
-    if use_mask:
-        in_specs.append(pl.BlockSpec((1, tn), b_map))
-        operands.append(mask_p.astype(jnp.float32))
-
-    # Probed search scores n_tiles*tn corpus rows per query block (and
-    # each block DMAs its own tile list); the dense scan scores all np_.
-    rows_per_block = n_tiles * tn
-    corpus_bytes_rows = (mp // tm) * rows_per_block if use_tiles else np_
-    cost = pl.CostEstimate(
-        flops=2 * mp * rows_per_block * dpp,
-        bytes_accessed=(mp * dpp + corpus_bytes_rows * dpp
-                        + mp * k_pad * 2) * 4,
-        transcendentals=0,
-    )
-    if use_tiles and tiles.shape[0] != mp // tm:
-        raise ValueError(
-            f"tiles has {tiles.shape[0]} rows; this problem runs "
-            f"{mp // tm} query blocks of {tm} rows"
-        )
-
-    def call(sel):
-        # The whole pallas_call is rebuilt per selection so gstack's rare
-        # exactness fallback can re-run the extract kernel under lax.cond
-        # (both branches trace once; only the fired one executes).
-        kernel = functools.partial(
-            _kernel,
-            k=k,
-            kp=k_pad,
-            block_n=tn,
-            use_bias=use_bias,
-            use_mask=use_mask,
-            selection=sel,
-            precision=kern_precision,
-            nk=nk,
-            prune=prune_eff,
-            use_tiles=use_tiles,
-            total_groups=g_groups if sel in ("gstack", "gpop") else 0,
-            posu=posu and sel == "gstack",
-            m_valid=m,
-        )
-        if sel == "gstack":
-            _, _, _, n_levels, n_segs = _gstack_geometry(g_groups, k)
-            if n_segs > 1:
-                # Segmented: one panel slab per 128-group segment; the
-                # output index map revisits a slab for all of its
-                # segment's tiles (the kernel writes it on the last one)
-                # and rolls to the next slab at the boundary.  Probed
-                # scans segment the VISITED sequence: j is the list
-                # position, so the same j // tps map applies (the
-                # prefetch ref rides as the trailing index-map arg).
-                tps = (_LANES * _LANES) // tn
-                if use_tiles:
-                    if nk == 1:
-                        po_map = (
-                            lambda i, j, t: (i, j // tps))      # noqa: E731
-                    else:
-                        po_map = (
-                            lambda i, j, kf, t: (i, j // tps))  # noqa: E731
-                elif nk == 1:
-                    po_map = lambda i, j: (i, j // tps)       # noqa: E731
-                else:
-                    po_map = lambda i, j, kf: (i, j // tps)   # noqa: E731
-            else:
-                po_map = o_map
-            out_specs = [pl.BlockSpec((tm, n_levels * _LANES), po_map)]
-            out_shape = [
-                jax.ShapeDtypeStruct((mp, n_segs * n_levels * _LANES),
-                                     jnp.int32)
-            ]
-            scratch = [pltpu.VMEM((n_levels, tm, _LANES), jnp.int32)]
-        elif sel == "gpop":
-            _, _, _, n_levels, _ = _gstack_geometry(np_ // _LANES, k)
-            out_specs = [
-                pl.BlockSpec((tm, k_pad), o_map),
-                pl.BlockSpec((tm, k_pad), o_map),
-            ]
-            out_shape = [
-                jax.ShapeDtypeStruct((mp, k_pad), jnp.float32),
-                jax.ShapeDtypeStruct((mp, k_pad), jnp.int32),
-            ]
-            scratch = [pltpu.VMEM((n_levels, tm, _LANES), jnp.int32)]
-        else:
-            out_specs = [
-                pl.BlockSpec((tm, k_pad), o_map),
-                pl.BlockSpec((tm, k_pad), o_map),
-            ]
-            out_shape = [
-                jax.ShapeDtypeStruct((mp, k_pad), jnp.float32),
-                jax.ShapeDtypeStruct((mp, k_pad), jnp.int32),
-            ]
-            scratch = [
-                pltpu.VMEM((tm, k_pad), jnp.float32),
-                pltpu.VMEM((tm, k_pad), jnp.int32),
-            ]
-        if nk > 1:
-            scratch.append(pltpu.VMEM((tm, tn), jnp.float32))
-        if use_tiles:
-            # dimension_semantics: without it Mosaic treats the
-            # prefetch-indexed corpus walk as unpipelinable and stalls
-            # ~60 us per grid step (measured: 61 us/tile-visit flat in
-            # tile count and list locality, vs the dense path's 3.3) —
-            # "arbitrary" on the tile axis restores double-buffering
-            # while keeping sequential-revisit semantics.
-            dims = (("parallel",) + ("arbitrary",) * (len(grid) - 1))
-            return pl.pallas_call(
-                kernel,
-                grid_spec=pltpu.PrefetchScalarGridSpec(
-                    num_scalar_prefetch=1,
-                    grid=grid,
-                    in_specs=in_specs,
-                    out_specs=out_specs,
-                    scratch_shapes=scratch,
-                ),
-                out_shape=out_shape,
-                cost_estimate=cost,
-                compiler_params=pltpu.CompilerParams(
-                    dimension_semantics=dims),
-                interpret=interpret,
-            )(tiles.astype(jnp.int32), *operands)
-        return pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            scratch_shapes=scratch,
-            cost_estimate=cost,
-            interpret=interpret,
-        )(*operands)
-
-    if selection == "gstack":
-        _, low_mask, depth, n_levels, n_segs = _gstack_geometry(
-            g_groups, k)
-        (u_panel,) = call("gstack")
-        vals, idx, bad = _gstack_decode(
-            u_panel, k, g_groups, low_mask, depth, n_levels, m,
-            n_segs, posu)
-        if use_tiles:
-            # The decode's idx lives in the VISITED universe
-            # (visited_group * 128 + lane); map it through each query
-            # block's tile list to corpus row ids BEFORE the fallback
-            # cond (the extract branch returns corpus ids directly).
-            dead = idx == _BIG_I32
-            vg = jnp.minimum(idx, _BIG_I32 - 1) // _LANES
-            lane = idx % _LANES
-            jv = jnp.clip(vg // gpt_g, 0, n_tiles - 1)
-            g2 = vg % gpt_g
-            blk = jnp.arange(idx.shape[0]) // tm
-            corpus_tile = tiles.astype(jnp.int32)[blk[:, None], jv]
-            idx = jnp.where(dead, _BIG_I32,
-                            corpus_tile * tn + g2 * _LANES + lane)
-        vals, idx = jax.lax.cond(
-            bad,
-            lambda: tuple(x[:, :k] for x in call("extract")),
-            lambda: (vals, idx),
-        )
-        return vals[:m], idx[:m]
-
-    if selection == "gpop":
-        vals, idx = call("gpop")
-        # The kernel signals a detection hit through the kp-1 sentinel
-        # slot (never part of the k <= 16 result); the exact extract
-        # re-run fires rarely (same fire-rate math as gstack's depth).
-        bad = jnp.max(vals[:, k_pad - 1]) > 0.0
-        vals, idx = jax.lax.cond(
-            bad,
-            lambda: tuple(call("extract")),
-            lambda: (vals, idx),
-        )
-        return vals[:m, :k], idx[:m, :k]
-
-    vals, idx = call(selection)
-    return vals[:m, :k], idx[:m, :k]
+        s = d + cb[0][:, None, :]
+    if mk is not None:
+        s = jnp.where(mk[:, None, :], s, _NEG_INF)
+    return s
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "metric", "block_q", "block_n", "k_pad",
-                     "precision", "selection", "interpret", "prune"),
-)
-def _fused_topk_f32(
-    q: jax.Array,
-    c: jax.Array,
-    mask: "Optional[jax.Array]" = None,
-    *,
-    k: int,
-    metric: Metric,
-    block_q: int,
-    block_n: int,
-    k_pad: int,
-    precision: str,
-    selection: str,
-    interpret: bool,
-    prune: str = "auto",
-) -> Tuple[jax.Array, jax.Array]:
-    """One-shot path: corpus prep + run fused in a single jit."""
-    n, dim = c.shape[0], q.shape[1]
-    tn = _pick_block_n(
-        _round_up(dim, 128), min(block_q, _round_up(q.shape[0], 8)),
-        block_n, k_pad,
-    )
-    cp, cbp = prepare_corpus(c, metric, tn=tn, precision=precision)
-    use_bias = (metric is Metric.EUCLIDEAN or cbp.shape[1] != n
-                or mask is not None)
-    mask_p = None if mask is None else pad_mask_row(mask, cbp.shape[1])
-    return _run_prepared(
-        q, cp, cbp,
-        k=k, metric=metric, block_q=block_q, tn=tn, k_pad=k_pad,
-        precision=precision, selection=selection, use_bias=use_bias,
-        interpret=interpret, prune=prune, mask_p=mask_p,
-    )
+def _merge(carry, s, cols_of):
+    """Merge one step into the running (B, m, k) carry.
+
+    ``cols_of(pos)`` maps step column positions to corpus row ids.  The
+    carry goes first in the concatenation, so a tie keeps the earlier
+    (lower-index) row.
+    """
+    vals, idx = carry
+    k = vals.shape[-1]
+    sv, sp = jax.lax.top_k(s, min(k, s.shape[-1]))
+    si = cols_of(sp)
+    v, p = jax.lax.top_k(jnp.concatenate([vals, sv], axis=-1), k)
+    i = jnp.take_along_axis(jnp.concatenate([idx, si], axis=-1), p, axis=-1)
+    return v, i
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "metric", "block_q", "tn", "k_pad",
-                     "precision", "selection", "use_bias", "interpret",
-                     "prune"),
-)
-def _run_prepared_jit(q, cp, cbp, **kw):
-    return _run_prepared(q, cp, cbp, **kw)
+def _init_carry(b: int, m: int, k: int):
+    return (jnp.full((b, m, k), _NEG_INF, jnp.float32),
+            jnp.full((b, m, k), _BIG_I32, jnp.int32))
+
+
+def step_rows(m: int, width: int, precision: str) -> int:
+    """Corpus rows per scan step for an m-query batch: the largest power
+    of two that keeps the (m, S) score slab and the dequantized (S, width)
+    corpus slab within their budgets, and never below 1024 rows."""
+    row_bytes = width * (4 if precision in ("highest", "bf16x3") else 2)
+    s = min(_SCORE_SLAB_BYTES // (4 * max(m, 1)),
+            _CORPUS_SLAB_BYTES // max(row_bytes, 1))
+    s = max(s, _MIN_STEP_ROWS)
+    return 1 << (s.bit_length() - 1)
+
+
+def _triton_step(carry, qs, slab, bias, r0):
+    """The step through ``triton_step`` (bf16x3, k <= 16, on a GPU): the
+    kernel keeps the score tile in registers and hands XLA each corpus
+    block's best candidates to merge."""
+    from . import triton_step
+
+    qh, ql = qs[0][0], qs[1][0]
+    m = qh.shape[0]
+    bq = min(64, max(16, 1 << (m - 1).bit_length()))
+    pad = (-slab.shape[0]) % triton_step.BLOCK_N
+    if pad:
+        slab = jnp.pad(slab, ((0, pad), (0, 0)))
+        bias = jnp.pad(bias, (0, pad), constant_values=_NEG_INF)
+    mp = _round_up(m, bq)
+    qh = jnp.pad(qh, ((0, mp - m), (0, 0)))
+    ql = jnp.pad(ql, ((0, mp - m), (0, 0)))
+    v, i = triton_step.step_candidates(qh, ql, slab, bias,
+                                       k=carry[0].shape[-1], bq=bq)
+    return _merge(carry, v[None, :m], lambda p: jnp.take_along_axis(
+        i[None, :m], p, axis=-1) + r0)
+
+
+def _scan_dense(qs, cp, cbp, mk, k: int, step: int, precision: str):
+    """Dense scan: every corpus row, in contiguous steps of ``step``.
+
+    At k <= 16 on the bf16x3 tier (feature width a multiple of 64) the
+    step lowers to the Triton kernel on a GPU (measured faster than XLA's
+    product + ``lax.top_k`` there) and to the XLA step everywhere else."""
+    from .triton_step import BLOCK_K, KP
+
+    rows = cp.shape[0]
+    n_full, tail = divmod(rows, step)
+
+    def run(r0, size, carry):
+        slab = jax.lax.dynamic_slice_in_dim(cp, r0, size, 0)
+        cb = jax.lax.dynamic_slice_in_dim(cbp, r0, size, 1)
+        m_s = (None if mk is None else
+               jax.lax.dynamic_slice_in_dim(mk, r0, size, 0))
+
+        def xla(carry):
+            s = _step_scores(qs, slab[None], cb[:, None, :],
+                             None if m_s is None else m_s[None], precision)
+            return _merge(carry, s, lambda p: p + r0)
+
+        if precision != "bf16x3" or k > KP or qs[0].shape[-1] % BLOCK_K:
+            return xla(carry)
+        bias = cb[0] if m_s is None else jnp.where(m_s, cb[0], _NEG_INF)
+        return jax.lax.platform_dependent(
+            carry, cuda=lambda c: _triton_step(c, qs, slab, bias, r0),
+            default=xla)
+
+    carry = _init_carry(1, qs[0].shape[1], k)
+    if n_full:
+        carry = jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(n_full),
+            lambda j, c: run(j * jnp.int32(step), step, c), carry)
+    if tail:
+        carry = run(jnp.int32(n_full * step), tail, carry)
+    return carry
+
+
+def _scan_probed(qs, cp, cbp, mk, tiles, k: int, tn: int, g: int,
+                 precision: str):
+    """Probed scan: query block b visits only the corpus tiles listed in
+    ``tiles[b]`` (ascending, distinct), ``g`` listed tiles per step,
+    gathered from the tile-shaped view of the prepared corpus."""
+    qb, p = tiles.shape
+    n_tiles = cp.shape[0] // tn
+    cp3 = cp.reshape(n_tiles, tn, cp.shape[1])
+    cb3 = cbp.reshape(cbp.shape[0], n_tiles, tn)
+    mk3 = None if mk is None else mk.reshape(n_tiles, tn)
+    lane = jnp.arange(tn, dtype=jnp.int32)
+    n_full, tail = divmod(p, g)
+
+    def run(t, carry):
+        gt = t.shape[1]
+        slab = cp3[t].reshape(qb, gt * tn, cp.shape[1])
+        cb = cb3[:, t].reshape(cbp.shape[0], qb, gt * tn)
+        m_s = None if mk3 is None else mk3[t].reshape(qb, gt * tn)
+        s = _step_scores(qs, slab, cb, m_s, precision)
+        cols = (t[:, :, None] * tn + lane).reshape(qb, gt * tn)
+        return _merge(carry, s, lambda pos: jnp.take_along_axis(
+            cols[:, None, :], pos, axis=-1))
+
+    carry = _init_carry(qb, qs[0].shape[1], k)
+    if n_full:
+        carry = jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(n_full),
+            lambda j, c: run(jax.lax.dynamic_slice_in_dim(
+                tiles, j * jnp.int32(g), g, 1), c), carry)
+    if tail:
+        carry = run(tiles[:, n_full * g:], carry)
+    return carry
+
+
+def query_block_rows(m: int, cfg: SearchConfig) -> int:
+    """Query rows per probe block for an m-query batch; a tile list has
+    one row per block (n_blocks = ceil(m / this))."""
+    return min(cfg.block_q, _round_up(m, 8))
+
+
+def _search(q, cp, cbp, mk, tiles, *, k: int, metric: Metric,
+            precision: str, tn: int, tm: int,
+            step: Optional[int]) -> Tuple[jax.Array, jax.Array]:
+    """Query prep + scan + euclidean finalize against a prepared corpus."""
+    m = q.shape[0]
+    width = _corpus_width(cp, precision)
+    qs = _prepare_queries(q, metric, precision, width)
+    if tiles is None:
+        st = step or step_rows(m, width, precision)
+        qs = tuple(x[None] for x in qs)
+        vals, idx = _scan_dense(qs, cp, cbp, mk, k, st, precision)
+        vals, idx = vals[0], idx[0]
+    else:
+        pad = (-cp.shape[0]) % tn
+        if pad:  # the tile view needs whole tiles; pad rows are dead
+            cp = jnp.pad(cp, ((0, pad), (0, 0)))
+            cbp = jnp.concatenate([
+                jnp.pad(cbp[:-1], ((0, 0), (0, pad))),
+                jnp.pad(cbp[-1:], ((0, 0), (0, pad)),
+                        constant_values=_NEG_INF)], axis=0)
+            if mk is not None:
+                mk = jnp.pad(mk, (0, pad), constant_values=False)
+        qb = tiles.shape[0]
+        qs = tuple(
+            jnp.pad(x, ((0, qb * tm - m), (0, 0))).reshape(qb, tm, width)
+            for x in qs)
+        st = step or step_rows(tm * qb, width, precision)
+        g = max(1, min(tiles.shape[1], st // tn))
+        vals, idx = _scan_probed(qs, cp, cbp, mk, tiles.astype(jnp.int32),
+                                 k, tn, g, precision)
+        vals = vals.reshape(qb * tm, k)[:m]
+        idx = idx.reshape(qb * tm, k)[:m]
+    idx = jnp.where(vals == _NEG_INF, jnp.int32(_BIG_I32), idx)
+    if metric is Metric.EUCLIDEAN:
+        qf = q.astype(jnp.float32)
+        qsq = jnp.sum(qf * qf, axis=1, keepdims=True)
+        vals = jnp.sqrt(jnp.maximum(qsq - vals, 0.0))
+    return vals, idx
 
 
 def fused_topk_prepared(
@@ -2286,93 +546,57 @@ def fused_topk_prepared(
     metric,
     *,
     mask: Optional[jax.Array] = None,
-    tn: Optional[int] = None,
     config: Optional[SearchConfig] = None,
-    interpret: Optional[bool] = None,
     tiles: Optional[jax.Array] = None,
+    tn: Optional[int] = None,
+    step: Optional[int] = None,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Run the fused kernel against a corpus prepared by prepare_corpus.
+    """Top-k against a corpus prepared by ``prepare_corpus`` (or a shared
+    quantized buffer with its scale|bias operand).  Traceable.
 
-    The euclidean final sqrt/shift needs the raw queries, so it is applied
-    here exactly as in fused_topk.  ``mask`` (n,) bool filters corpus rows.
-    ``tn`` must be the tile height the prep was padded for; defaults to
-    this config's choice for (dim, k).
+    ``mask`` (n,) bool filters corpus rows.  ``config.precision`` names
+    the tier cp was prepared for.
 
-    ``tiles`` (n_query_blocks, P) int32 opts into probed search: each
-    query block scans only its listed corpus-tile ids (ascending,
-    distinct, each < n_padded/tn), and unlisted tiles never leave HBM.
-    n_query_blocks must match query_tile_rows(m, dim, cfg, k).  Exact
-    over the visited rows; recall is the tile-list builder's contract
-    (see ops.cluster).  Carry slots a query cannot fill from its listed
-    tiles come back as (-inf, int32-max) sentinels.
+    ``tiles`` (n_query_blocks, P) int32 opts into probed search: query
+    block b (``query_block_rows`` rows) scans only its listed tile ids
+    (ascending, distinct, each < rows / ``tn``).  Exact over the visited
+    rows; recall depends on which tiles are listed (see ops.cluster).
+    Slots a query cannot fill from its listed tiles come back as
+    (-inf, int32-max) sentinels.
+
+    ``step`` overrides the rows per scan step (``step_rows``).
     """
     cfg = resolve(config)
     metric = Metric.parse(metric)
-    if k > max(cfg.k_pad, _MAX_FUSED_K):
-        # The carry width auto-raises to effective_k_pad(k) up to
-        # _MAX_FUSED_K; beyond that the dispatching surfaces fall back.
-        raise ValueError(
-            f"k={k} exceeds the fused path's ceiling "
-            f"max(k_pad, {_MAX_FUSED_K})={max(cfg.k_pad, _MAX_FUSED_K)}; "
-            "use the unprepared/fallback path")
-    if q.dtype != jnp.float32:
-        # Half-precision query ingestion (Corpus.topk uploads f16/bf16
-        # queries at half the host->device bytes): upcast on device, so
-        # the kernel and the euclidean finalize below both run f32.
-        q = q.astype(jnp.float32)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if tn is None:
-        tn = corpus_tile_rows(q.shape[1], cfg, k)
-    bq_eff, _ = effective_tiles(cfg, k)
-    # The prepared cbp always carries the pad mask, so keep the bias pass.
-    use_bias = True
-    mask_p = None if mask is None else pad_mask_row(mask, cbp.shape[1])
-    if tiles is not None and tiles.shape[1] > cbp.shape[1] // tn:
-        raise ValueError(
-            f"tiles lists {tiles.shape[1]} tiles per query block; the "
-            f"prepared corpus only has {cbp.shape[1] // tn} (repeating a "
-            "tile would duplicate its rows in the result)"
-        )
-    with jax.enable_x64(False):
-        vals, idx = _run_prepared_jit(
-            q, cp, cbp,
-            k=k, metric=metric, block_q=bq_eff, tn=tn,
-            k_pad=effective_k_pad(k, cfg), precision=cfg.precision,
-            selection=cfg.selection, use_bias=use_bias,
-            interpret=interpret, prune=cfg.prune, mask_p=mask_p,
-            tiles=tiles,
-        )
-    if metric is Metric.EUCLIDEAN:
-        qsq = jnp.sum(q * q, axis=1, keepdims=True).astype(jnp.float32)
-        vals = jnp.sqrt(jnp.maximum(qsq - vals, 0.0))
-    return vals, idx
+    rows = cbp.shape[1]
+    mk = None if mask is None else pad_mask_row(mask, rows)
+    tn = cfg.block_n if tn is None else tn
+    tm = query_block_rows(q.shape[0], cfg)
+    if tiles is not None:
+        n_tiles = -(-rows // tn)
+        if tiles.shape[1] > n_tiles:
+            raise ValueError(
+                f"tiles lists {tiles.shape[1]} tiles per query block; the "
+                f"prepared corpus only has {n_tiles} (repeating a tile "
+                "would duplicate its rows in the result)"
+            )
+        if tiles.shape[0] != -(-q.shape[0] // tm):
+            raise ValueError(
+                f"tiles has {tiles.shape[0]} rows; this problem runs "
+                f"{-(-q.shape[0] // tm)} query blocks of {tm} rows"
+            )
+    return _search(q, cp, cbp, mk, tiles, k=k, metric=metric,
+                   precision=cfg.precision, tn=tn, tm=tm, step=step)
 
 
-# Tuning fields a cached autotune winner may override on an all-defaults
-# dispatch (mirrors utils.autotune._CFG_FIELDS).
-_TUNED_FIELDS = ("block_q", "block_n", "k_pad", "selection", "auto_tile",
-                 "precision", "prune")
-
-
-def _consult_autotune_cache(cfg: SearchConfig, dim: int, k: int, n: int,
-                            metric) -> SearchConfig:
-    """Adopt the persisted autotune winner's tuning fields when the caller
-    left every one of them at its compiled default (VERDICT r04 item 7:
-    the v5e regime map should yield to a measured winner on other device
-    kinds).  Any explicit pin — or use_autotune_cache=False — wins."""
-    if not cfg.use_autotune_cache:
-        return cfg
-    base = SearchConfig()
-    if any(getattr(cfg, f) != getattr(base, f) for f in _TUNED_FIELDS):
-        return cfg
-    from ..utils.autotune import cached_winner
-
-    win = cached_winner(dim, k, n, metric, cfg.precision)
-    if win is None:
-        return cfg
-    return cfg.with_updates(
-        **{f: getattr(win, f) for f in _TUNED_FIELDS})
+@functools.partial(jax.jit,
+                   static_argnames=("k", "metric", "precision", "step"))
+def _oneshot(q, c, mask, *, k: int, metric: Metric, precision: str,
+             step: Optional[int]):
+    cp, cbp = prepare_corpus(c, metric, precision=precision)
+    mk = None if mask is None else pad_mask_row(mask, cbp.shape[1])
+    return _search(q, cp, cbp, mk, None, k=k, metric=metric,
+                   precision=precision, tn=1, tm=1, step=step)
 
 
 def fused_topk(
@@ -2383,50 +607,20 @@ def fused_topk(
     *,
     mask: Optional[jax.Array] = None,
     config: Optional[SearchConfig] = None,
-    interpret: Optional[bool] = None,
+    step: Optional[int] = None,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Fused top-k search. Returns ((m, k) scores best-first, (m, k) indices).
+    """Top-k search. Returns ((m, k) scores best-first, (m, k) indices).
 
-    Dispatches to the Pallas kernel when supported, otherwise to the pure-XLA
-    reference path.  ``k`` must already be clamped to ``c.shape[0]``.
-    ``mask`` (n_corpus,) bool excludes corpus rows (filtered search); slots
-    beyond the number of matching rows carry sentinel scores (-inf
-    similarity / +inf distance).
+    ``k`` must already be clamped to ``c.shape[0]``.  ``mask`` (n_corpus,)
+    bool excludes corpus rows (filtered search); slots beyond the number
+    of matching rows carry sentinel scores (-inf similarity / +inf
+    distance) and int32-max indices.  f64 inputs take the dense f64
+    reference path.
     """
     cfg = resolve(config)
     metric = Metric.parse(metric)
-    cfg = _consult_autotune_cache(cfg, q.shape[1], k, c.shape[0], metric)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    if not cfg.use_pallas or not supports(q.shape, c.shape, q.dtype, k, cfg):
-        fb = ("highest"
-              if cfg.precision in ("bf16x3", "bf16c", "int8c", "int4c")
-              else cfg.precision)
-        mk = None if mask is None else jnp.asarray(mask).astype(bool)
-        return reference.topk_search(q, c, k, metric, mask=mk, precision=fb)
-
-    # Trace the Pallas kernel with x64 disabled: the kernel is pure
-    # f32/int32, and under jax_enable_x64 bare Python int literals (e.g. in
-    # BlockSpec index maps) become i64 scalars that Mosaic cannot lower.
-    with jax.enable_x64(False):
-        mk = None if mask is None else jnp.asarray(mask).astype(bool)
-        bq_eff, bn_eff = effective_tiles(cfg, k)
-        vals, idx = _fused_topk_f32(
-            q, c, mk,
-            k=k,
-            metric=metric,
-            block_q=bq_eff,
-            block_n=bn_eff,
-            k_pad=effective_k_pad(k, cfg),
-            precision=cfg.precision,
-            selection=cfg.selection,
-            interpret=interpret,
-            prune=cfg.prune,
-        )
-    if metric is Metric.EUCLIDEAN:
-        # Kernel scores are 2 q.c - |c|^2 (maximize orientation, |q|^2
-        # omitted as rank-invariant); recover the true distance here.
-        qsq = jnp.sum(q * q, axis=1, keepdims=True).astype(jnp.float32)
-        vals = jnp.sqrt(jnp.maximum(qsq - vals, 0.0))
-    return vals, idx
+    mk = None if mask is None else jnp.asarray(mask).astype(bool)
+    if q.dtype != jnp.float32 or c.dtype != jnp.float32:
+        return reference.topk_search(q, c, k, metric, mask=mk)
+    return _oneshot(q, c, mk, k=k, metric=metric, precision=cfg.precision,
+                    step=step)

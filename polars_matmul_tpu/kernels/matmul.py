@@ -1,117 +1,23 @@
-"""Pairwise matmul (Q . C^T) kernels.
+"""Pairwise matmul (Q . C^T).
 
-The reference's raw-matmul op (src/metrics.rs:40-255) maps to a single XLA
-``dot_general`` on TPU — XLA already emits optimal MXU tiling for a dense
-GEMM, so the default path is the compiler's.  A hand-written Pallas tiled
-matmul is provided as well (used for benchmarking / as a template for fused
-epilogues) with K-dimension accumulation in a VMEM scratch accumulator.
+The reference's raw-matmul op (src/metrics.rs:40-255) is a single XLA
+``dot_general``; XLA hands it to the GPU's GEMM library.  It always
+computes at full precision of its dtype: an f32 product left at the
+default precision would run in TF32 on the GPU.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Optional
-
 import jax
-import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
-_PRECISION = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-    "bf16x3": jax.lax.Precision.HIGHEST,
-    "bf16c": jax.lax.Precision.HIGHEST,  # fused-kernel mode; exact here
-}
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-@functools.partial(jax.jit, static_argnames=("precision",))
-def pairwise_matmul(q: jax.Array, c: jax.Array, *, precision: str = "highest"):
-    """Q . C^T via XLA (the production path for the plain matmul op)."""
+@jax.jit
+def pairwise_matmul(q: jax.Array, c: jax.Array) -> jax.Array:
+    """Q . C^T at full f32 / f64 precision."""
     return jax.lax.dot_general(
         q,
         c,
         dimension_numbers=(((1,), (1,)), ((), ())),
-        precision=_PRECISION[precision],
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=q.dtype,
     )
-
-
-def _mm_kernel(q_ref, c_ref, o_ref, acc_ref, *, precision):
-    kk = pl.program_id(2)
-
-    @pl.when(kk == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jax.lax.dot_general(
-        q_ref[:],
-        c_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        precision=precision,
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(kk == pl.num_programs(2) - 1)
-    def _():
-        o_ref[:] = acc_ref[:]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_m", "block_n", "block_k", "precision",
-                              "interpret")
-)
-def pallas_matmul(
-    q: jax.Array,
-    c: jax.Array,
-    *,
-    block_m: int = 256,
-    block_n: int = 512,
-    block_k: int = 512,
-    precision: str = "highest",
-    interpret: bool = False,
-) -> jax.Array:
-    """Pallas MXU-tiled Q . C^T (f32). Grid (M/bm, N/bn, K/bk), K innermost."""
-    m, dim = q.shape
-    n = c.shape[0]
-    bm = min(block_m, _round_up(m, 8))
-    bn = min(block_n, _round_up(n, 128))
-    bk = min(block_k, _round_up(dim, 128))
-    mp, np_, kp = _round_up(m, bm), _round_up(n, bn), _round_up(dim, bk)
-
-    qp = jnp.pad(q.astype(jnp.float32), ((0, mp - m), (0, kp - dim)))
-    cp = jnp.pad(c.astype(jnp.float32), ((0, np_ - n), (0, kp - dim)))
-
-    out = _pallas_mm(qp, cp, bm, bn, bk, precision, interpret)
-    return out[:m, :n].astype(q.dtype)
-
-
-def _pallas_mm(qp, cp, bm, bn, bk, precision, interpret):
-    mp, kp = qp.shape
-    np_ = cp.shape[0]
-    # x64 disabled during trace: kernel is pure f32 and Python int literals
-    # in index maps would otherwise become Mosaic-unloweable i64 scalars.
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            functools.partial(_mm_kernel, precision=_PRECISION[precision]),
-            grid=(mp // bm, np_ // bn, kp // bk),
-            in_specs=[
-                pl.BlockSpec((bm, bk), lambda i, j, kk: (i, kk)),
-                pl.BlockSpec((bn, bk), lambda i, j, kk: (j, kk)),
-            ],
-            out_specs=pl.BlockSpec((bm, bn), lambda i, j, kk: (i, j)),
-            out_shape=jax.ShapeDtypeStruct((mp, np_), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-            cost_estimate=pl.CostEstimate(
-                flops=2 * mp * np_ * kp,
-                bytes_accessed=(mp * kp + np_ * kp + mp * np_) * 4,
-                transcendentals=0,
-            ),
-            interpret=interpret,
-        )(qp, cp)

@@ -1,14 +1,14 @@
 """Corpus clustering for probed (IVF-style) search.
 
 The reference scans every corpus row on every query (faer GEMM over the
-full matrix, reference src/metrics.rs:40-255); the fused kernel already
-reduced that to one streamed pass, which leaves HBM bandwidth as the
-binding cost for big-corpus serving (reading N*dim bytes per batch).
-Probed search attacks the bytes themselves: corpus rows are k-means
-clustered and laid out so each cluster owns whole corpus tiles; at query
-time a tiny (m x n_clusters) centroid matmul ranks the tiles and only the
-top ``P`` per query block are visited by the kernel (scalar-prefetch
-index maps — unlisted tiles never leave HBM).  Exact over the visited
+full matrix, reference src/metrics.rs:40-255); the scan already reduced
+that to one streamed pass, which leaves memory bandwidth as the binding
+cost for big-corpus serving (reading N*dim bytes per batch).  Probed
+search attacks the bytes themselves: corpus rows are k-means clustered
+and laid out so each cluster owns whole corpus tiles; at query time a
+tiny (m x n_clusters) centroid matmul ranks the tiles and only the top
+``P`` per query block are visited (the scan gathers just the listed
+tiles; unlisted tiles are never read).  Exact over the visited
 rows; recall vs an exhaustive scan is governed by ``P`` and how well the
 corpus clusters.
 
@@ -26,6 +26,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from .metrics import Metric
+
+# The clustering products run at full f32 precision: on the GPU an f32
+# product left at the default precision runs in TF32.
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 class ClusterLayout(NamedTuple):
@@ -67,14 +75,15 @@ def _kmeanspp_init(key, x, n_clusters: int):
     key, k0 = jax.random.split(key)
     i0 = jax.random.randint(k0, (), 0, n)
     cents = jnp.zeros((n_clusters, x.shape[1]), jnp.float32).at[0].set(x[i0])
-    d2 = jnp.maximum(xsq - 2.0 * (x @ x[i0]) + xsq[i0], 0.0)
+    d2 = jnp.maximum(xsq - 2.0 * _mm(x, x[i0]) + xsq[i0], 0.0)
 
     def step(carry, key_t):
         cents, d2, t = carry
         idx = jax.random.categorical(key_t, jnp.log(d2 + 1e-30))
         cnew = x[idx]
         cents = cents.at[t].set(cnew)
-        nd = jnp.maximum(xsq - 2.0 * (x @ cnew) + jnp.sum(cnew * cnew), 0.0)
+        nd = jnp.maximum(xsq - 2.0 * _mm(x, cnew) + jnp.sum(cnew * cnew),
+                         0.0)
         return (cents, jnp.minimum(d2, nd), t + 1), None
 
     keys = jax.random.split(key, n_clusters - 1)
@@ -103,7 +112,7 @@ def kmeans(x, n_clusters: int, *, iters: int = 8, seed: int = 0):
         cent0 = _kmeanspp_init(key, x, n_clusters)
 
     def assign(cent):
-        d = -2.0 * (x @ cent.T) + jnp.sum(cent * cent, axis=1)[None, :]
+        d = -2.0 * _mm(x, cent.T) + jnp.sum(cent * cent, axis=1)[None, :]
         return jnp.argmin(d, axis=1).astype(jnp.int32)
 
     def step(cent, _):
@@ -133,7 +142,7 @@ def make_assigner(centroids):
     @jax.jit
     def one(chunk):
         x = chunk.astype(jnp.float32)
-        d = -2.0 * (x @ cent.T) + csq
+        d = -2.0 * _mm(x, cent.T) + csq
         return jnp.argmin(d, axis=1).astype(jnp.int32)
 
     return one
@@ -157,7 +166,7 @@ def make_assigner_native(centroids, storage: str, dim: int):
             x = dequant_int4(rows, scales, dim)
         else:
             x = rows.astype(jnp.float32) * scales[:, None]
-        d = -2.0 * (x @ cent.T) + csq
+        d = -2.0 * _mm(x, cent.T) + csq
         return jnp.argmin(d, axis=1).astype(jnp.int32)
 
     return one
@@ -186,7 +195,7 @@ def assign_rows(c, centroids, *, chunk_rows: int = 65536) -> np.ndarray:
     A HOST corpus is sliced on host and uploaded one chunk at a time:
     `jnp.asarray(c)` here once put the whole corpus on device, which is
     exactly what chunking exists to avoid (a 10M x 768 f32 corpus is
-    28.6 GB — found as an ingestion OOM on a 15.75 GB v5e).  An already-
+    28.6 GB, more than the device may have free).  An already-
     device-resident corpus keeps the on-device dynamic_slice path."""
     one = make_assigner(centroids)
     n = c.shape[0]
@@ -261,10 +270,10 @@ def centroid_scores(q, centroids, metric) -> "object":
         cn = jnp.linalg.norm(cent, axis=1, keepdims=True)
         q = q / jnp.maximum(qn, 1e-20)
         cent = cent / jnp.maximum(cn, 1e-20)
-        return q @ cent.T
+        return _mm(q, cent.T)
     if metric is Metric.EUCLIDEAN:
-        return 2.0 * (q @ cent.T) - jnp.sum(cent * cent, axis=1)[None, :]
-    return q @ cent.T
+        return 2.0 * _mm(q, cent.T) - jnp.sum(cent * cent, axis=1)[None, :]
+    return _mm(q, cent.T)
 
 
 @functools.partial(jax.jit, static_argnames=("p", "tm", "metric_v"))

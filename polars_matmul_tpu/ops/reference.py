@@ -1,8 +1,9 @@
 """Pure-JAX reference implementations of the two public operations.
 
-These are the correctness oracle for the Pallas kernels (SURVEY.md §7 layer 2)
-and the fallback compute path on non-TPU backends.  Semantics replicate the
-reference Rust core exactly:
+These are the correctness oracle for the scan in ``kernels.fused_topk``
+(SURVEY.md §7 layer 2) and the f64 compute path.  Every product runs at
+HIGHEST precision: an f32 dot left at the default would run in TF32 on the
+GPU.  Semantics replicate the reference Rust core exactly:
 
 - ``pairwise_scores``  == reference ``compute_similarity_matrix[_f32]``
   (src/metrics.rs:258-365): cosine divides the raw dot products by the norm
@@ -28,24 +29,13 @@ import jax.numpy as jnp
 
 from .metrics import Metric, cosine_eps
 
-_PRECISION = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
-    # "bf16x3" is a fused-kernel mode; the dense/oracle path computes
-    # exact f32 for it.
-    "bf16x3": jax.lax.Precision.HIGHEST,
-    "bf16c": jax.lax.Precision.HIGHEST,
-}
-
-
-def _dot(q: jax.Array, c: jax.Array, precision: str) -> jax.Array:
-    """Q . C^T with explicit accumulation dtype (MXU-friendly)."""
+def _dot(q: jax.Array, c: jax.Array) -> jax.Array:
+    """Q . C^T at full precision, accumulated in the input dtype."""
     return jax.lax.dot_general(
         q,
         c,
         dimension_numbers=(((1,), (1,)), ((), ())),
-        precision=_PRECISION[precision],
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=q.dtype,
     )
 
@@ -54,17 +44,14 @@ def pairwise_scores(
     q: jax.Array,
     c: jax.Array,
     metric: Metric = Metric.COSINE,
-    *,
-    precision: str = "highest",
 ) -> jax.Array:
     """Dense (n_queries, n_corpus) score matrix for the given metric.
 
-    Only used by the plain ``matmul`` op (dot metric) and as the oracle for
-    the fused kernel; the production top-k path never materializes this
-    matrix in HBM.
+    The oracle for the scan; the f32 top-k path never materializes this
+    matrix.
     """
     metric = Metric.parse(metric)
-    d = _dot(q, c, precision)
+    d = _dot(q, c)
     if metric is Metric.DOT:
         return d
     if metric is Metric.COSINE:
@@ -100,7 +87,7 @@ def topk_from_scores(
     return vals, idx
 
 
-@partial(jax.jit, static_argnames=("k", "metric", "precision"))
+@partial(jax.jit, static_argnames=("k", "metric"))
 def topk_search(
     q: jax.Array,
     c: jax.Array,
@@ -108,7 +95,6 @@ def topk_search(
     metric: Metric = Metric.COSINE,
     *,
     mask: Optional[jax.Array] = None,
-    precision: str = "highest",
 ) -> Tuple[jax.Array, jax.Array]:
     """Fused search: returns ((n_queries, k) scores, (n_queries, k) indices).
 
@@ -119,11 +105,11 @@ def topk_search(
     corpus rows from selection (filtered search — no reference analog);
     slots beyond the number of matching rows carry sentinel scores
     (-inf similarity / +inf distance) and int32-max indices — the same
-    contract as the fused kernel, so callers can detect unfilled slots
+    contract as the scan, so callers can detect unfilled slots
     uniformly.
     """
     metric = Metric.parse(metric)
-    scores = pairwise_scores(q, c, metric, precision=precision)
+    scores = pairwise_scores(q, c, metric)
     if mask is not None:
         worst = -jnp.inf if metric.higher_is_better else jnp.inf
         scores = jnp.where(mask[None, :], scores, worst)

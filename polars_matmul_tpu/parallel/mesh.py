@@ -3,9 +3,10 @@
 The reference has no distributed layer at all (SURVEY.md §2.3: the only
 parallelism is Rayon intra-op threading).  Here the distributed backend is
 JAX/XLA: ``jax.distributed.initialize`` for the multi-host runtime and a
-named ``Mesh`` whose axes are ``("data", "corpus")`` — queries shard over
-``data``, corpus rows shard over ``corpus``; collectives are compiled by XLA
-onto ICI within a slice and DCN across hosts.
+plain named ``Mesh`` grid whose axes are ``("data", "corpus")`` — queries
+shard over ``data``, corpus rows shard over ``corpus``.  XLA compiles the
+collectives (to NCCL on GPUs); every GPU of a host reaches every other
+over NVLink at the same rate, so the grid follows the algorithm alone.
 """
 
 from __future__ import annotations

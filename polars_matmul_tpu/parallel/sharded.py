@@ -1,10 +1,10 @@
 """Corpus-sharded distributed search (shard_map + XLA collectives).
 
-The TPU-native answer to the reference's (absent) distributed layer
-(SURVEY.md §2.3, §5): the corpus is block-partitioned across the ``corpus``
-mesh axis, each device runs the fused Pallas top-k on its shard with global
-index offsets, and per-shard k-candidates are merged by a re-select — the
-exchange is tiny (k x (idx, score) per shard per query).
+The answer to the reference's (absent) distributed layer (SURVEY.md §2.3,
+§5): the corpus is block-partitioned across the ``corpus`` mesh axis, each
+device runs the top-k scan on its shard with global index offsets, and
+per-shard k-candidates are merged by a re-select — the exchange is tiny
+(k x (idx, score) per shard per query).
 
 Block (contiguous) partitioning is chosen over hash partitioning
 deliberately: shard s owns global rows [s*ns, (s+1)*ns), so the gathered
@@ -53,13 +53,12 @@ class ShardedCorpus:
     # the live-mask search path so the compiled program is independent
     # of the (mutable) live count.
     has_capacity: bool = False
-    # Lazily-built per-(metric, precision) prepared forms (pre-scaled,
-    # padded, precision-split per shard) so steady-state distributed
-    # queries do zero per-call corpus work — the sharded analog of
-    # Corpus._prepared_for.
+    # Lazily-built per-(metric, precision) prepared forms (pre-scaled and
+    # converted per shard) so steady-state distributed queries do zero
+    # per-call corpus work — the sharded analog of Corpus._prepared_for.
     _prepared: dict = dataclasses.field(default_factory=dict, repr=False)
-    # Cached dense-f32 shards for fallback/matmul paths on quantized
-    # storage (the sharded analog of Corpus._f32_view): built once, not
+    # Cached dense-f32 shards for the matmul path on quantized storage
+    # (the sharded analog of Corpus._f32_view): built once, not
     # re-dequantized on every call.
     _f32_view: "Optional[jax.Array]" = dataclasses.field(  # noqa: F821
         default=None, repr=False)
@@ -84,12 +83,11 @@ class ShardedCorpus:
 
     def dense_f32(self, mesh, cfg: SearchConfig):
         """Dense value shards (dequantized / upcast at shard granularity,
-        cached) for paths that need real values: the XLA fallback and
-        the distributed matmul."""
+        cached) for the distributed matmul."""
         if str(self.data.dtype) == "float32":
             return self.data
         if str(self.data.dtype) == "float64":
-            # f64 shards serve the exact f64 fallback/matmul paths AS IS
+            # f64 shards serve the exact f64 search/matmul paths AS IS
             # (the both-f32 rule the single-device handle honors) — a
             # downcast here silently truncated distinct rows to equal
             # f32 values while returning f64-typed results
@@ -131,26 +129,19 @@ class ShardedCorpus:
             self._f32_view = jax.block_until_ready(view)
         return self._f32_view
 
-    def prepared_for(self, metric: Metric, mesh, cfg: SearchConfig,
-                     k: int = 1, tn: Optional[int] = None):
+    def prepared_for(self, metric: Metric, mesh, cfg: SearchConfig):
         """Cached per-shard (cp, cbp) from kernels.fused_topk.prepare_corpus.
 
-        Large shards are prepared in row chunks with donated output
-        buffers (one-shot prep transiently holds ~3x the shard bytes,
-        chunked ~2x + one chunk), mirroring Corpus._prepared_for.
-        ``tn`` overrides the tile height (probed layouts pin it to their
-        tile_cluster granularity regardless of k).
+        Quantized shards are their own cp; only the per-shard (2, ns)
+        scale|bias rows are computed, each shard masking its rows beyond
+        the global live count.  Large float shards are prepared in row
+        chunks with donated output buffers (one-shot prep transiently
+        holds ~3x the shard bytes, chunked ~2x + one chunk), mirroring
+        Corpus._prepared_for.
         """
-        from ..kernels.fused_topk import corpus_tile_rows, prepare_corpus
+        from ..kernels.fused_topk import prepare_corpus
 
-        # The prep is padded for a specific corpus tile height, which the
-        # tiling knobs determine — key on it so a different SearchConfig
-        # cannot silently reuse a geometry-mismatched prep.  Derive it
-        # from the LOGICAL dim (quantized shards carry packed/padded
-        # widths that would misgate the shared-storage path).
-        if tn is None:
-            tn = corpus_tile_rows(self.dim or self.data.shape[1], cfg, k)
-        key = (metric.value, cfg.precision, tn)
+        key = (metric.value, cfg.precision)
         if key in self._prepared:
             return self._prepared[key]
 
@@ -163,179 +154,118 @@ class ShardedCorpus:
         ns = self.data.shape[0] // n_shards
         dim = self.data.shape[1]
         itemsize = self.data.dtype.itemsize
-        quant = self.scales is not None
 
-        if quant and ns % tn == 0:
-            # Shared-storage fast path (see shard_corpus): the shard data
-            # IS the prepared cp; only the per-shard (2, ns) scale|bias
-            # rows are computed.  Each shard masks its rows beyond the
-            # global live count — every padding row's global index lands
-            # >= n_true, which the merge already discards.  The bias rows
-            # are tile-height-independent, so a different k-regime reuses
-            # them as-is (mirrors Corpus._prepared_for).
+        if self.scales is not None:
             from ..kernels.fused_topk import (prepare_int4_bias,
                                               prepare_int8_bias)
 
             bias_fn = (prepare_int4_bias if self.storage == "int4"
                        else prepare_int8_bias)
-
-            for (mv, pv, _t), (cp_o, cbp_o) in self._prepared.items():
-                if ((mv, pv) == (metric.value, cfg.precision)
-                        and cbp_o.shape[1] == self.data.shape[0]):
-                    self._prepared[key] = (self.data, cbp_o)
-                    return self._prepared[key]
-
             n_true = self.n_true
-
-            with jax.enable_x64(False):
-                if ns * dim * 4 <= cfg.prep_chunk_bytes:
-                    def bias_local(codes_, scales_):
-                        off = jax.lax.axis_index(c_axis) * ns
-                        return bias_fn(codes_, scales_, metric,
-                                       n_true - off)
-
-                    mapped = _shard_map(
-                        bias_local, mesh,
-                        in_specs=(P(c_axis, None), P(c_axis)),
-                        out_specs=P(None, c_axis),
-                    )
-                    cbp = jax.block_until_ready(
-                        jax.jit(mapped)(self.data, self.scales))
-                else:
-                    # Chunked: bound the transient f32 code upcast inside
-                    # the norm to one row chunk per shard.
-                    per = max(4096,
-                              cfg.prep_chunk_bytes // (dim * 4)
-                              // 4096 * 4096)
-                    buf = jax.device_put(
-                        jnp.zeros((2, self.data.shape[0]), jnp.float32),
-                        jax.sharding.NamedSharding(
-                            mesh, P(None, c_axis)),
-                    )
-
-                    def make_update(rows):
-                        # r0 rides as a TRACED operand so all full-size
-                        # chunks share one compiled program (a fresh
-                        # closure per chunk would compile a shard_map
-                        # program per chunk — seconds each).
-                        def upd(buf_, r0_, codes_, scales_):
-                            off = jax.lax.axis_index(c_axis) * ns
-                            r0i = r0_[0]
-                            c_ = jax.lax.dynamic_slice_in_dim(
-                                codes_, r0i, rows, 0)
-                            s_ = jax.lax.dynamic_slice_in_dim(
-                                scales_, r0i, rows, 0)
-                            cbc = bias_fn(
-                                c_, s_, metric, n_true - off - r0i)
-                            return jax.lax.dynamic_update_slice(
-                                buf_, cbc, (jnp.int32(0), r0i))
-
-                        mapped = _shard_map(
-                            upd, mesh,
-                            in_specs=(P(None, c_axis), P(),
-                                      P(c_axis, None), P(c_axis)),
-                            out_specs=P(None, c_axis),
-                        )
-                        return jax.jit(mapped, donate_argnums=(0,))
-
-                    fn_full = make_update(min(per, ns))
-                    r0 = 0
-                    while r0 < ns:
-                        rows = min(per, ns - r0)
-                        fn = (fn_full if rows == min(per, ns)
-                              else make_update(rows))
-                        buf = fn(buf, jnp.asarray([r0], jnp.int32),
-                                 self.data, self.scales)
-                        r0 += rows
-                    cbp = jax.block_until_ready(buf)
-            self._prepared[key] = (self.data, cbp)
-            return self._prepared[key]
-
-        def prep(chunk, *rest):  # rest = (scales_chunk,) on the int8 path
-            return prepare_corpus(
-                chunk, metric, tn=tn, precision=cfg.precision,
-                scales=rest[0] if rest else None,
-            )
-
-        data_args = (self.data,) + ((self.scales,) if quant else ())
-        data_specs = (P(c_axis, None),) + ((P(c_axis),) if quant else ())
-
-        with jax.enable_x64(False):
-            if ns * dim * itemsize <= cfg.prep_chunk_bytes:
-                mapped = _shard_map(
-                    prep, mesh,
-                    in_specs=data_specs,
-                    out_specs=(P(c_axis, None), P(None, c_axis)),
-                )
-                self._prepared[key] = jax.block_until_ready(
-                    jax.jit(mapped)(*data_args)
-                )
-                return self._prepared[key]
-
-            # Chunked path: every shard processes its local rows
-            # [r0, r0 + rows) in lockstep; chunk heights are multiples of
-            # tn so only each shard's final chunk carries padding.
-            rows_per_chunk = max(
-                tn, cfg.prep_chunk_bytes // (dim * itemsize) // tn * tn
-            )
-            ns_pad = ((ns + tn - 1) // tn) * tn
-            probe_shapes = [
-                jax.ShapeDtypeStruct((rows_per_chunk, dim), self.data.dtype)
-            ]
-            if quant:
-                probe_shapes.append(
-                    jax.ShapeDtypeStruct((rows_per_chunk,),
-                                         self.scales.dtype))
-            probe_cp, probe_cb = jax.eval_shape(prep, *probe_shapes)
-            buf_cp = jax.device_put(
-                jnp.zeros((n_shards * ns_pad, probe_cp.shape[1]),
-                          probe_cp.dtype),
-                jax.sharding.NamedSharding(mesh, P(c_axis, None)),
-            )
-            buf_cb = jax.device_put(
-                jnp.zeros((probe_cb.shape[0], n_shards * ns_pad),
-                          probe_cb.dtype),
+            # Chunked: the transient f32 code upcast inside the norm stays
+            # bounded by one row chunk per shard.
+            per = min(ns, max(4096, cfg.prep_chunk_bytes // (dim * 4)
+                              // 4096 * 4096))
+            buf = jax.device_put(
+                jnp.zeros((2, self.data.shape[0]), jnp.float32),
                 jax.sharding.NamedSharding(mesh, P(None, c_axis)),
             )
 
             def make_update(rows):
-                # Each shard slices ITS local rows [r0, r0 + rows) — a
-                # per-shard operation, so it lives inside the shard_map.
-                # r0 is a TRACED operand: full-size chunks share one
-                # compiled program instead of one per chunk.
-                def update_local(buf_cp_, buf_cb_, r0_, data_, *rest_):
+                # r0 rides as a TRACED operand so all full-size chunks
+                # share one compiled program (a fresh closure per chunk
+                # would compile a shard_map program per chunk).
+                def upd(buf_, r0_, codes_, scales_):
+                    off = jax.lax.axis_index(c_axis) * ns
                     r0i = r0_[0]
-                    c_ = jax.lax.dynamic_slice_in_dim(data_, r0i, rows, 0)
-                    s_args = tuple(
-                        jax.lax.dynamic_slice_in_dim(s_, r0i, rows, 0)
-                        for s_ in rest_
-                    )
-                    cpc, cbc = prep(c_, *s_args)
-                    bp = jax.lax.dynamic_update_slice(
-                        buf_cp_, cpc, (r0i, jnp.int32(0)))
-                    bb = jax.lax.dynamic_update_slice(
-                        buf_cb_, cbc, (jnp.int32(0), r0i))
-                    return bp, bb
+                    c_ = jax.lax.dynamic_slice_in_dim(codes_, r0i, rows, 0)
+                    s_ = jax.lax.dynamic_slice_in_dim(scales_, r0i, rows, 0)
+                    cbc = bias_fn(c_, s_, metric, n_true - off - r0i)
+                    return jax.lax.dynamic_update_slice(
+                        buf_, cbc, (jnp.int32(0), r0i))
 
                 mapped = _shard_map(
-                    update_local, mesh,
-                    in_specs=(P(c_axis, None), P(None, c_axis), P(),
-                              *data_specs),
-                    out_specs=(P(c_axis, None), P(None, c_axis)),
+                    upd, mesh,
+                    in_specs=(P(None, c_axis), P(), P(c_axis, None),
+                              P(c_axis)),
+                    out_specs=P(None, c_axis),
                 )
-                return jax.jit(mapped, donate_argnums=(0, 1))
+                return jax.jit(mapped, donate_argnums=(0,))
 
-            fn_full = make_update(min(rows_per_chunk, ns))
+            fns = {}
             r0 = 0
             while r0 < ns:
-                rows = min(rows_per_chunk, ns - r0)
-                fn = (fn_full if rows == min(rows_per_chunk, ns)
-                      else make_update(rows))
-                buf_cp, buf_cb = fn(buf_cp, buf_cb,
-                                    jnp.asarray([r0], jnp.int32),
-                                    *data_args)
+                rows = min(per, ns - r0)
+                if rows not in fns:
+                    fns[rows] = make_update(rows)
+                buf = fns[rows](buf, jnp.asarray([r0], jnp.int32),
+                                self.data, self.scales)
                 r0 += rows
-            self._prepared[key] = jax.block_until_ready((buf_cp, buf_cb))
+            self._prepared[key] = (self.data, jax.block_until_ready(buf))
+            return self._prepared[key]
+
+        def prep(chunk):
+            return prepare_corpus(chunk, metric, precision=cfg.precision)
+
+        if ns * dim * itemsize <= cfg.prep_chunk_bytes:
+            mapped = _shard_map(
+                prep, mesh,
+                in_specs=(P(c_axis, None),),
+                out_specs=(P(c_axis, None), P(None, c_axis)),
+            )
+            self._prepared[key] = jax.block_until_ready(
+                jax.jit(mapped)(self.data))
+            return self._prepared[key]
+
+        # Chunked path: every shard processes its local rows
+        # [r0, r0 + rows) in lockstep.
+        rows_per_chunk = max(1, cfg.prep_chunk_bytes // (dim * itemsize))
+        probe_cp, probe_cb = jax.eval_shape(
+            prep, jax.ShapeDtypeStruct((rows_per_chunk, dim),
+                                       self.data.dtype))
+        buf_cp = jax.device_put(
+            jnp.zeros((n_shards * ns, probe_cp.shape[1]), probe_cp.dtype),
+            jax.sharding.NamedSharding(mesh, P(c_axis, None)),
+        )
+        buf_cb = jax.device_put(
+            jnp.zeros((probe_cb.shape[0], n_shards * ns), probe_cb.dtype),
+            jax.sharding.NamedSharding(mesh, P(None, c_axis)),
+        )
+
+        def make_update(rows):
+            # Each shard slices ITS local rows [r0, r0 + rows) — a
+            # per-shard operation, so it lives inside the shard_map.
+            # r0 is a TRACED operand: full-size chunks share one
+            # compiled program instead of one per chunk.
+            def update_local(buf_cp_, buf_cb_, r0_, data_):
+                r0i = r0_[0]
+                c_ = jax.lax.dynamic_slice_in_dim(data_, r0i, rows, 0)
+                cpc, cbc = prep(c_)
+                bp = jax.lax.dynamic_update_slice(
+                    buf_cp_, cpc, (r0i, jnp.int32(0)))
+                bb = jax.lax.dynamic_update_slice(
+                    buf_cb_, cbc, (jnp.int32(0), r0i))
+                return bp, bb
+
+            mapped = _shard_map(
+                update_local, mesh,
+                in_specs=(P(c_axis, None), P(None, c_axis), P(),
+                          P(c_axis, None)),
+                out_specs=(P(c_axis, None), P(None, c_axis)),
+            )
+            return jax.jit(mapped, donate_argnums=(0, 1))
+
+        fns = {}
+        r0 = 0
+        while r0 < ns:
+            rows = min(rows_per_chunk, ns - r0)
+            if rows not in fns:
+                fns[rows] = make_update(rows)
+            buf_cp, buf_cb = fns[rows](buf_cp, buf_cb,
+                                       jnp.asarray([r0], jnp.int32),
+                                       self.data)
+            r0 += rows
+        self._prepared[key] = jax.block_until_ready((buf_cp, buf_cb))
         return self._prepared[key]
 
 
@@ -347,9 +277,8 @@ def shard_corpus(c, mesh, config: Optional[SearchConfig] = None,
     over the corpus mesh axis.
 
     int8 corpora get the shared-storage layout: every shard's height is
-    padded to a 4096 multiple (each standard tile height divides it) and
-    features to the kernel width, so the per-shard prepared form ALIASES
-    the shard data instead of copying it.  Original rows stay contiguous
+    padded to a 4096 multiple and features to a multiple of 128, so the
+    per-shard prepared form ALIASES the shard data instead of copying it.  Original rows stay contiguous
     at global positions [0, n) — the standard index mapping is untouched
     — and all padding rows map to global indices >= n, which the merge
     already masks.
@@ -410,18 +339,10 @@ def shard_corpus(c, mesh, config: Optional[SearchConfig] = None,
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    """shard_map across jax versions."""
     import jax
 
-    if hasattr(jax, "shard_map"):
-        return jax.shard_map(
-            fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False,
-        )
-    from jax.experimental.shard_map import shard_map as sm  # pragma: no cover
-
-    return sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-              check_rep=False)
+    return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def _merge_sorted_2key(vals, idx, k: int, hib: bool):
@@ -450,10 +371,10 @@ def _merge_sorted_2key(vals, idx, k: int, hib: bool):
 def _topk_callable(mesh, k, k_local, ns, metric: Metric,
                    cfg: SearchConfig, prepared: bool = False,
                    masked: bool = False, probed=None):
-    """``probed=(p_local, tm)`` (prepared path only) adds two operands —
-    replicated centroids and the shard's tile-cluster slice — and each
-    shard probe-ranks its own corpus tiles before the fused kernel visits
-    only the listed ones (distributed IVF: equal per-shard probe budget,
+    """``probed=(p_local, tm, tn)`` (prepared path only) adds two operands
+    — replicated centroids and the shard's tile-cluster slice — and each
+    shard probe-ranks its own corpus tiles before the scan visits only the
+    listed ones (distributed IVF: equal per-shard probe budget,
     load-balanced by construction).
 
     The live row count rides as a TRACED int32 operand (``nl_``), not a
@@ -487,8 +408,7 @@ def _topk_callable(mesh, k, k_local, ns, metric: Metric,
 
     if prepared and probed is not None:
         # tn is the LAYOUT's tile height: tile_cluster ids address the
-        # corpus at that granularity, so the kernel must tile at it too
-        # (its own k-aware default diverges at k > 16).
+        # corpus at that granularity.
         p_local, tm, tn_probe = probed
 
         def local_topk(q_, nl_, cp_, cb_, cent_, tc_, *m_):
@@ -512,12 +432,11 @@ def _topk_callable(mesh, k, k_local, ns, metric: Metric,
         corpus_in_specs = (P(c_axis, None), P(None, c_axis))
     else:
         def local_topk(q_, nl_, c_, *m_):
-            # Quantized shards arrive pre-dequantized (ShardedCorpus
-            # .dense_f32 caches the f32 view), so this path always sees
-            # real f32 values.
+            # f64 search: the dense reference path on each shard.
             mk = m_[0] if m_ else None
-            return finish(nl_, *fused_topk(q_, c_, k_local, metric,
-                                           mask=mk, config=cfg))
+            return finish(nl_, *fused_topk(q_, c_.astype(q_.dtype),
+                                           k_local, metric, mask=mk,
+                                           config=cfg))
 
         corpus_in_specs = (P(c_axis, None),)
     if masked:
@@ -539,8 +458,8 @@ def _topk_callable(mesh, k, k_local, ns, metric: Metric,
         def ring_fn(q_, nl_, *c_args):
             # Pipeline the merge with compute: each query chunk's ring
             # exchange is dataflow-independent of the next chunk's local
-            # search, so the latency-hiding scheduler overlaps the ICI
-            # hops with MXU work.
+            # search, so XLA's scheduler can overlap the hops with the
+            # next chunk's search.
             m = q_.shape[0]
             n_chunks = max(1, min(cfg.ring_pipeline, m))
             bounds = [m * i // n_chunks for i in range(n_chunks + 1)]
@@ -600,15 +519,14 @@ def distributed_topk(
     replicated centroids and visits only its best ``p_local`` (equal
     per-shard budget — distributed IVF).  Requires the corpus rows to be
     laid out cluster-contiguous (see api.clustered); indices come back in
-    the sharded (permuted) space, the caller owns the map-back.  Ignored
-    on the dense fallback path (exhaustive is strictly better recall).
+    the sharded (permuted) space, the caller owns the map-back.
 
-    Phase 1 (shard_map): per-shard fused top-k with global index offsets,
+    Phase 1 (shard_map): per-shard top-k scan with global index offsets,
     padding rows masked to worst-score.  Phase 2 merge, per
     ``config.merge``:
 
     - ``"allgather"`` (default): gather the (m, S*k_local) candidate panels
-      (XLA lowers the all-gather onto ICI) and re-select locally.  Candidate
+      (an XLA all-gather) and re-select locally.  Candidate
       order is shard order = global-index order, so lax.top_k's positional
       tie-break preserves lowest-index-wins.
     - ``"ring"``: S-1 ``ppermute`` steps around the corpus-axis ring, each
@@ -620,21 +538,23 @@ def distributed_topk(
 
     Returns (scores, indices) like the single-device path.
     """
-    import numpy as _np
+    import jax.numpy as jnp
 
     cfg = resolve(config)
     metric = Metric.parse(metric)
-    if str(corpus.data.dtype) == "bfloat16" and cfg.precision != "bf16c":
-        # bf16-STORAGE policy (same as Corpus._effective_precision): the
-        # shards are quantized at rest, so the only coherent kernel mode is
-        # "bf16c" — a higher-precision request could only spend memory.
-        cfg = cfg.with_updates(precision="bf16c")
     quant = corpus.scales is not None
     if quant:
-        want = "int4c" if corpus.storage == "int4" else "int8c"
-        if cfg.precision != want:
-            # quantized-STORAGE policy: same reasoning as bf16c above.
-            cfg = cfg.with_updates(precision=want)
+        cfg = cfg.with_updates(
+            precision="int4c" if corpus.storage == "int4" else "int8c")
+    elif str(corpus.data.dtype) == "bfloat16":
+        cfg = cfg.with_updates(precision="bf16c")
+    # Quantized and bf16 shards are searched in f32 whatever the query
+    # width (the values are quantized at rest); f64 shards and f64
+    # queries against f32 shards take the f64 reference path.
+    if quant or str(corpus.data.dtype) == "bfloat16":
+        q = q.astype(jnp.float32)
+    use_prepared = (str(q.dtype) == "float32"
+                    and str(corpus.data.dtype) != "float64")
     c_axis = cfg.mesh_axes[1]
     n_shards = mesh.shape[c_axis]
     ns = corpus.shape[0] // n_shards
@@ -645,10 +565,9 @@ def distributed_topk(
     # masked to worst score, so they could evict real candidates.  With
     # the standard layout (pad < n_shards rows, all in the last shard)
     # widening the local k by the pad count guarantees every true top-k
-    # member survives the local round.  The int8 shared-storage layout
-    # pads every shard to a 4096-row multiple — widening by that much
-    # would blow past k_pad — so it synthesizes an explicit live-row
-    # mask instead (the kernel then -inf's pad rows by SELECT, and they
+    # member survives the local round.  The quantized layout pads every
+    # shard to a 4096-row multiple, so it synthesizes an explicit
+    # live-row mask instead (pad rows then score -inf by select and
     # cannot evict anything).
     pad_rows = corpus.shape[0] - n_true
     # Capacity-reserved corpora always take the mask path: k_local then
@@ -660,27 +579,6 @@ def distributed_topk(
     else:
         k_local = min(k + pad_rows, ns)
 
-    from ..kernels.fused_topk import max_fused_k, supports
-
-    dim = corpus.dim or corpus.data.shape[1]
-    if quant:
-        dev_ok = cfg.precision in ("int8c", "int4c")
-    elif str(corpus.data.dtype) == "bfloat16":
-        dev_ok = cfg.precision == "bf16c"
-    else:
-        dev_ok = _np.dtype(corpus.data.dtype) == _np.float32
-    sup = supports((q.shape[0], dim), (ns, dim), _np.float32, k_local, cfg)
-    if not sup and quant and k_local <= max_fused_k(cfg):
-        # Quantized storage above max_fused_dim: never materialize dense
-        # f32 shards just for the high-dim speed policy (mirrors the
-        # single-device carve-out in Corpus.topk).
-        sup = True
-    use_prepared = (
-        cfg.use_pallas
-        and dev_ok
-        and _np.dtype(q.dtype) == _np.float32
-        and sup
-    )
     m_args = ()
     masked = mask is not None or synth_mask
     if mask is not None:
@@ -688,39 +586,29 @@ def distributed_topk(
 
         # pad_mask_row pads the tail with False, so a user mask already
         # excludes every padding row — no live-row combine needed.
-        m_args = (pad_mask_row(mask, corpus.shape[0]).reshape(-1),)
+        m_args = (pad_mask_row(mask, corpus.shape[0]),)
     elif synth_mask:
         # Cached on the corpus: depends only on (shape, n_true).
         m_args = (corpus.live_mask(mesh, cfg),)
-    if use_prepared:
-        if probe is not None:
-            from ..kernels.fused_topk import (corpus_tile_rows,
-                                              query_tile_rows)
-
-            cent, tc, p_local, *pr_rest = probe
-            # the layout's tile height governs both the prep geometry
-            # and the kernel tiling — tile ids address the corpus at it
-            tn_lay = (int(pr_rest[0]) if pr_rest
-                      else corpus_tile_rows(dim, cfg, 1))
-            cp, cbp = corpus.prepared_for(metric, mesh, cfg, k_local,
-                                          tn=tn_lay)
-            d_shards = mesh.shape[cfg.mesh_axes[0]]
-            m_local = (q.shape[0] // d_shards if d_shards > 1
-                       else q.shape[0])
-            tm = query_tile_rows(max(1, m_local), dim, cfg, k_local)
-            fn = _topk_callable(mesh, k, k_local, ns, metric, cfg,
-                                prepared=True, masked=masked,
-                                probed=(int(p_local), tm, tn_lay))
-            return fn(q, n_true, cp, cbp, cent, tc, *m_args)
-        cp, cbp = corpus.prepared_for(metric, mesh, cfg, k_local)
+    if not use_prepared:
         fn = _topk_callable(mesh, k, k_local, ns, metric, cfg,
-                            prepared=True, masked=masked)
-        return fn(q, n_true, cp, cbp, *m_args)
+                            masked=masked)
+        return fn(q, n_true, corpus.dense_f32(mesh, cfg), *m_args)
+    cp, cbp = corpus.prepared_for(metric, mesh, cfg)
+    if probe is not None:
+        from ..kernels.fused_topk import query_block_rows
+
+        cent, tc, p_local, tn_lay = probe
+        d_shards = mesh.shape[cfg.mesh_axes[0]]
+        m_local = q.shape[0] // d_shards if d_shards > 1 else q.shape[0]
+        tm = query_block_rows(max(1, m_local), cfg)
+        fn = _topk_callable(mesh, k, k_local, ns, metric, cfg,
+                            prepared=True, masked=masked,
+                            probed=(int(p_local), tm, int(tn_lay)))
+        return fn(q, n_true, cp, cbp, cent, tc, *m_args)
     fn = _topk_callable(mesh, k, k_local, ns, metric, cfg,
-                        masked=masked)
-    # Quantized / bf16 shards: the fallback needs dense values — use the
-    # cached f32 view (built once) instead of dequantizing per call.
-    return fn(q, n_true, corpus.dense_f32(mesh, cfg), *m_args)
+                        prepared=True, masked=masked)
+    return fn(q, n_true, cp, cbp, *m_args)
 
 
 @lru_cache(maxsize=64)
@@ -732,14 +620,12 @@ def _matmul_callable(mesh, n_true, cfg: SearchConfig):
 
     d_axis, c_axis = cfg.mesh_axes
     shards_data = mesh.shape[d_axis] > 1
-    precision = ("bf16x3" if cfg.precision in ("int8c", "int4c", "bf16c")
-                 else cfg.precision)
 
     def local_fn(q_, c_):
         if c_.dtype != q_.dtype:
             # f64-query contract on an f32 view: upcast per shard.
             c_ = c_.astype(q_.dtype)
-        return pairwise_matmul(q_, c_, precision=precision)
+        return pairwise_matmul(q_, c_)
 
     q_spec = P(d_axis, None) if shards_data else P()
     mapped = _shard_map(

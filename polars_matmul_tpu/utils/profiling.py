@@ -2,9 +2,6 @@
 
 - ``annotate``: jax.profiler trace annotation around extract / transfer /
   compute / merge phases; no-op outside an active trace.
-- ``Timer`` and ``benchmark``: ``block_until_ready``-bracketed wall timing.
-- ``roofline``: achieved-vs-peak GFLOP/s accounting for the bench harness
-  (BASELINE.json's metric is GFLOP/s/chip and %-of-MXU-roofline).
 - ``call_stats``: structured per-call stats behind a debug flag
   (PMM_TPU_DEBUG=1), on the standard ``logging`` logger.
 """
@@ -15,7 +12,7 @@ import contextlib
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Optional
 
 log = logging.getLogger("polars_matmul_tpu")
 _DEBUG = os.environ.get("PMM_TPU_DEBUG", "0") == "1"
@@ -35,76 +32,6 @@ def annotate(name: str):
         yield
     if _DEBUG:
         log.info("%s: %.3f ms", name, (time.perf_counter() - t0) * 1e3)
-
-
-def block(x):
-    """Block until all device computation backing ``x`` is done."""
-    import jax
-
-    return jax.block_until_ready(x)
-
-
-def benchmark(
-    fn: Callable, *args, warmup: int = 2, iters: int = 10, **kw
-) -> Dict[str, float]:
-    """Time ``fn`` with block_until_ready bracketing. Returns stats in ms."""
-    for _ in range(warmup):
-        block(fn(*args, **kw))
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        block(fn(*args, **kw))
-        times.append((time.perf_counter() - t0) * 1e3)
-    times.sort()
-    return {
-        "min_ms": times[0],
-        "median_ms": times[len(times) // 2],
-        "mean_ms": sum(times) / len(times),
-        "iters": float(iters),
-    }
-
-
-# Published peak dense-matmul throughput per chip, TFLOP/s.  Used only for
-# roofline *reporting*; unknown platforms report achieved GFLOP/s with no
-# percentage.  ONE denominator policy (VERDICT r04 weak #2): "bfloat16"
-# is the hardware bf16 MXU peak (v5e: 197 TF/s; 394 is the INT8 number —
-# a round-1..4 mislabeling fixed round 5); "float32" is the effective
-# ceiling for f32-ACCURATE scores on bf16 hardware via the kernel's
-# bf16x3 3-pass split, i.e. bf16_peak / 3 — a fraction of 1.0 against it
-# means the MXU never idles.
-_PEAK_TFLOPS = {
-    # (platform substring, dtype) -> TFLOP/s
-    ("v5 lite", "bfloat16"): 197.0,
-    ("v5 lite", "float32"): 197.0 / 3,  # bf16x3 3-pass effective f32
-    ("v5e", "bfloat16"): 197.0,
-    ("v5e", "float32"): 197.0 / 3,
-    ("v4", "bfloat16"): 275.0,
-    ("v4", "float32"): 275.0 / 3,
-}
-
-
-def device_peak_tflops(dtype: str = "float32") -> Optional[float]:
-    import jax
-
-    try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:  # pragma: no cover
-        return None
-    for (sub, dt), peak in _PEAK_TFLOPS.items():
-        if sub in kind and dt == dtype:
-            return peak
-    return None
-
-
-def roofline(flops: float, seconds: float, dtype: str = "float32") -> Dict:
-    """Achieved GFLOP/s and fraction of MXU peak (if platform known)."""
-    gflops = flops / seconds / 1e9
-    peak = device_peak_tflops(dtype)
-    out = {"achieved_gflops": gflops}
-    if peak:
-        out["peak_tflops"] = peak
-        out["fraction_of_peak"] = gflops / (peak * 1e3)
-    return out
 
 
 def call_stats(op: str, *, m: int, n: int, dim: int, k: Optional[int] = None,

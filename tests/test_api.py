@@ -214,8 +214,8 @@ class TestNumpyApi:
 
 class TestResultPacking:
     """The single-transfer result fetch must never move int32 indices
-    through f32 space: small ints bitcast to f32 are denormals and TPU
-    float pipelines flush them to zero in transit (regression: indices all
+    through f32 space: small ints bitcast to f32 are denormals, which a
+    float pipeline may flush to zero in transit (regression: indices all
     came back 0 on real hardware while CPU tests stayed green)."""
 
     def test_f32_pack_is_integer_space(self):
@@ -299,112 +299,6 @@ def test_prepared_corpus_chunked_prep_matches_oneshot():
         i2, v2 = small.topk(q, 11, metric)
         np.testing.assert_array_equal(i1, i2)
         np.testing.assert_array_equal(v1, v2)
-
-
-def test_autotune_returns_config():
-    """Off-TPU (this suite) autotune must refuse to measure interpret-mode
-    kernels and return the base config unchanged; the timer primitive
-    still works standalone."""
-    from polars_matmul_tpu.utils.autotune import autotune, device_step_seconds
-    import jax.numpy as jnp
-
-    base = pmt.SearchConfig(block_q=8, block_n=128)
-    cfg = autotune(m=8, n=64, dim=16, k=3, base=base,
-                   candidates=[(16, 128, "highest")])
-    assert cfg is base  # not TPU here -> unmeasured passthrough
-
-    t = device_step_seconds(
-        lambda q: jnp.max(q, axis=1, keepdims=True), jnp.ones((8, 16)),
-        chain_lo=2, chain_hi=6, iters=2)
-    assert isinstance(t, float)
-
-
-def test_autotune_winner_persistence(tmp_path, monkeypatch):
-    """Winners survive the process: the JSON cache round-trips configs
-    keyed by (device, dim, k-regime, n-regime, metric, precision), and a
-    'second process' (fresh in-memory cache) reuses them without
-    re-measuring (VERDICT r02 item 8)."""
-    from polars_matmul_tpu.utils import autotune as at
-
-    monkeypatch.setenv("PMM_TPU_CACHE_DIR", str(tmp_path))
-    key = ("fake-v5e", 256, "small", "1seg", "cosine", "bf16x3")
-    winner = pmt.SearchConfig(block_q=128, block_n=1024, auto_tile=False)
-    monkeypatch.setattr(at, "_WINNER_CACHE", {key: winner})
-    at._save_disk_cache()
-
-    # fresh process: empty in-memory cache, disk not yet loaded
-    monkeypatch.setattr(at, "_WINNER_CACHE", {})
-    monkeypatch.setattr(at, "_DISK_LOADED", [False])
-    at._load_disk_cache()
-    got = at._WINNER_CACHE[key]
-    assert (got.block_q, got.block_n, got.auto_tile) == (128, 1024, False)
-
-    # corrupt file must not break loading
-    (tmp_path / "autotune.json").write_text("{not json")
-    monkeypatch.setattr(at, "_WINNER_CACHE", {})
-    monkeypatch.setattr(at, "_DISK_LOADED", [False])
-    at._load_disk_cache()
-    assert at._WINNER_CACHE == {}
-
-
-def test_autotune_n_in_key_and_gstack_rewrite():
-    """ADVICE r02: the cache key must include the corpus-size regime, and
-    a winning selection='gstack' must be rewritten to 'auto' so the cached
-    config stays valid outside gstack's envelope."""
-    from polars_matmul_tpu.utils import autotune as at
-
-    assert at._n_regime(10_000) != at._n_regime(2_000_000)
-    w = at._finalize_winner(pmt.SearchConfig(selection="gstack"))
-    assert w.selection == "auto"
-    w2 = at._finalize_winner(pmt.SearchConfig(selection="bucket"))
-    assert w2.selection == "bucket"
-
-
-def test_dispatch_consults_cached_winner(monkeypatch):
-    """VERDICT r04 item 7: an all-defaults fused_topk dispatch adopts the
-    persisted autotune winner for this (device kind, problem class);
-    explicitly pinned tuning fields — or use_autotune_cache=False — win
-    over the cache, and results stay oracle-exact either way."""
-    import importlib
-
-    FT = importlib.import_module("polars_matmul_tpu.kernels.fused_topk")
-    from polars_matmul_tpu.utils import autotune as at
-
-    rng = np.random.default_rng(5)
-    q = rng.standard_normal((8, 32)).astype(np.float32)
-    c = rng.standard_normal((256, 32)).astype(np.float32)
-
-    key = (at._device_kind(), 32, "small", "1seg", "cosine", "bf16x3")
-    winner = pmt.SearchConfig(selection="extract", prune="off")
-    monkeypatch.setattr(at, "_WINNER_CACHE", {key: winner})
-    monkeypatch.setattr(at, "_DISK_LOADED", [True])  # never touch disk
-
-    seen = {}
-    orig = FT._fused_topk_f32
-
-    def spy(qq, cc, mk=None, **kw):
-        seen.update(kw)
-        return orig(qq, cc, mk, **kw)
-
-    monkeypatch.setattr(FT, "_fused_topk_f32", spy)
-
-    vals, idx = FT.fused_topk(q, c, 5, "cosine")
-    assert seen["selection"] == "extract" and seen["prune"] == "off"
-    qs = q / np.linalg.norm(q, axis=1, keepdims=True)
-    cs = c / np.linalg.norm(c, axis=1, keepdims=True)
-    ref = np.argsort(-(qs.astype(np.float64) @ cs.T.astype(np.float64)),
-                     axis=1, kind="stable")[:, :5]
-    np.testing.assert_array_equal(np.asarray(idx), ref)
-
-    seen.clear()
-    FT.fused_topk(q, c, 5, "cosine",
-                  config=pmt.SearchConfig(selection="bucket"))
-    assert seen["selection"] == "bucket"  # pinned field: cache ignored
-
-    seen.clear()
-    FT.fused_topk(q, c, 5, "cosine",
-                  config=pmt.SearchConfig(use_autotune_cache=False))
-    assert seen["selection"] == "auto"  # regime map resolves downstream
 
 
 class TestFilteredSearch:
@@ -560,15 +454,16 @@ def test_bf16_storage_dtype_contracts():
     out = h.matmul(q)
     assert out.dtype == np.float32
     i, v = h.topk(q, 3)
-    assert len(h._prepared) == 1                 # pallas path reachable
-    # fallback path (k > k_pad) caches one dense f32 view
+    assert len(h._prepared) == 1                 # bf16c scan
+    # any k serves from the same prep; matmul cached one dense f32 view
     i2, _ = h.topk(q, 200)
     assert i2.shape == (4, 60)
+    assert len(h._prepared) == 1
     assert h._f32_view is not None
 
 
 def test_bf16_storage_respects_precision_override():
-    """Any precision setting on a bf16 handle runs the bf16c kernel (the
+    """Any precision setting on a bf16 handle runs the bf16c tier (the
     values are quantized at rest; 'highest' could only waste memory)."""
     rng = np.random.default_rng(92)
     q = rng.standard_normal((4, 16)).astype(np.float32)
@@ -747,7 +642,7 @@ class TestCorpusAdd:
         assert out.shape == (3, 50)
         np.testing.assert_allclose(out, q @ np.vstack([c0, extra]).T,
                                    rtol=1e-5, atol=1e-5)
-        i, _ = h.topk(q, 200)                # k > k_pad: XLA fallback
+        i, _ = h.topk(q, 200)                # k clamps to the live rows
         assert i.shape == (3, 50)
 
     def test_add_bf16_storage(self):
@@ -788,8 +683,8 @@ class TestCorpusAdd:
 
 class TestInt8Storage:
     """Corpus(storage="int8"): per-row symmetric int8 codes + f32 scales —
-    a quarter of the f32 HBM and upload bytes.  The fused kernel converts
-    codes to bf16 in VMEM (int8 values are bf16-exact) and folds the
+    a quarter of the f32 HBM and upload bytes.  The scan converts each
+    step's codes to bf16 (int8 values are bf16-exact) and folds the
     dequant scale into the epilogue, so results match the DEQUANTIZED
     corpus almost exactly; recall vs exact f32 carries the quantization."""
 
@@ -854,14 +749,15 @@ class TestInt8Storage:
         np.testing.assert_allclose(
             out, q @ self._dequant(c64).T, rtol=1e-5, atol=1e-5)
         i, v = h.topk(q, 3)
-        assert len(h._prepared) == 1                 # pallas path reachable
-        i2, v2 = h.topk(q, 200)                      # k > k_pad: XLA fallback
+        assert len(h._prepared) == 1                 # int8c scan
+        i2, v2 = h.topk(q, 200)                      # k clamps to 60
         assert i2.shape == (4, 60)
-        assert h._f32_view is not None
-        # the fallback ranks the same dequantized values.  The kernel
-        # path (gstack at k > 16) truncates scores by up to a few ulps
-        # (group packing), so quantized near-ties may swap vs the exact
-        # XLA ranking — pair-consistency, not exact index equality.
+        assert len(h._prepared) == 1
+        assert h._f32_view is not None               # built by matmul
+        # the scan ranks the same dequantized values; its hi|lo query
+        # split differs from the exact product in the last bits, so
+        # quantized near-ties may swap — pair-consistency, not exact
+        # index equality.
         i3, v3 = pmt.topk(q, self._dequant(c64), 60)
         mism = np.asarray(i2) != np.asarray(i3)
         v2, v3 = np.asarray(v2), np.asarray(v3)
@@ -1039,9 +935,10 @@ class TestInt8SharedStorage:
         c = rng.standard_normal((200, 32)).astype(np.float32)
         h = pmt.Corpus(c, storage="int8")
         h.topk(q, 5)
-        h.topk(q, 40)                         # large-k regime, new tn key
-        cbs = [cb for _, cb in h._prepared.values()]
-        assert len(cbs) == 2 and cbs[0] is cbs[1]
+        (cp, cb), = h._prepared.values()
+        h.topk(q, 40)                # any k serves from the same prep
+        (cp2, cb2), = h._prepared.values()
+        assert cp2 is h._device and cb2 is cb
 
     def test_add_splices_alias_and_bias(self):
         rng = np.random.default_rng(143)
@@ -1090,10 +987,14 @@ class TestReviewRegressions:
         assert (np.asarray(v) < 0).all()
 
     def test_prune_config_validated(self):
-        with pytest.raises(ValueError, match="Unknown prune"):
-            pmt.SearchConfig(prune="true")
-        with pytest.raises(ValueError, match="Unknown selection"):
-            pmt.SearchConfig(selection="heap")
+        # the old kernel's knobs are gone, and so are the precisions that
+        # would leave an f32 product to the backend default (TF32)
+        for gone in ("prune", "selection", "k_pad", "use_pallas"):
+            with pytest.raises(TypeError):
+                pmt.SearchConfig(**{gone: "auto"})
+        for p in ("default", "high"):
+            with pytest.raises(ValueError, match="Unknown precision"):
+                pmt.SearchConfig(precision=p)
         with pytest.raises(ValueError, match="Unknown merge"):
             pmt.SearchConfig(merge="tree")
         with pytest.raises(ValueError, match="Unknown precision"):
@@ -1118,9 +1019,8 @@ class TestReviewRegressions:
         np.testing.assert_allclose(v1, v2, rtol=0, atol=0)  # bit-equal
 
     def test_highdim_quantized_never_builds_f32_view(self):
-        # dim > max_fused_dim with small scores used to fall back to XLA
-        # and permanently cache a 4x dense f32 copy; quantized storage
-        # must serve from the codes via the K-chunked kernel instead
+        # high-dim quantized storage must serve from the codes, never
+        # from a cached 4x dense f32 copy
         rng = np.random.default_rng(153)
         dim = 8600
         q = (rng.standard_normal((3, dim)) / 90).astype(np.float32)
@@ -1128,28 +1028,26 @@ class TestReviewRegressions:
         h = pmt.Corpus(c, storage="int8")
         i, v = h.topk(q, 4)
         assert h._f32_view is None
-        assert len(h._prepared) == 1          # kernel path taken
+        assert len(h._prepared) == 1          # int8c scan taken
         i2, _ = h.topk(q, 4, "euclidean")
         assert h._f32_view is None
 
-    def test_sharded_int8_fallback_uses_cached_view(self):
+    def test_sharded_int8_big_k_stays_on_codes(self):
         import jax
 
-        jax.config.update("jax_platforms", "cpu")
         if len(jax.devices()) < 8:
             pytest.skip("needs the 8-device CPU mesh")
         mesh = pmt.make_mesh(n_data=1, n_corpus=8)
         rng = np.random.default_rng(154)
         q = rng.standard_normal((3, 16)).astype(np.float32)
-        # shards must exceed 1024 rows so k_local > max_fused_k actually
-        # diverts to the fallback (smaller k now stays fused, round 4)
         c = rng.standard_normal((9600, 16)).astype(np.float32)
         h = pmt.Corpus(c, storage="int8", mesh=mesh)
-        h.topk(q, 1100)                       # k_local > 1024: fallback
-        assert h._device._f32_view is not None
-        view1 = h._device._f32_view
-        h.topk(q, 1100)
-        assert h._device._f32_view is view1   # built once, reused
+        h1 = pmt.Corpus(c, storage="int8")
+        i, v = h.topk(q, 1100)     # k_local > 1024: still the codes' scan
+        i1, v1 = h1.topk(q, 1100)
+        assert h._device._f32_view is None
+        np.testing.assert_allclose(v, v1, rtol=1e-5, atol=1e-6)
+        assert (i == i1).mean() > 0.99
 
 
 class TestCorpusUpdate:
@@ -1277,9 +1175,9 @@ class TestSeventhReviewRegressions:
         q = rng.standard_normal((4, 32)).astype(np.float32)
         c = rng.standard_normal((300, 32)).astype(np.float32)
         h = pmt.Corpus(c, storage="int8", capacity=400)
-        h.topk(q, 5)                     # tn regime 1
-        h.topk(q, 40)                    # tn regime 2, shared bias rows
-        assert len(h._prepared) == 2
+        h.topk(q, 5)
+        h.topk(q, 40)                    # same prep serves every k
+        assert len(h._prepared) == 1
         h.update([7], q[:1] * 3.0)       # must not touch a deleted array
         i, _ = h.topk(q[:1], 1)
         assert i[0, 0] == 7
@@ -1289,8 +1187,8 @@ class TestSeventhReviewRegressions:
         # both regimes still serve correctly and share one bias array
         i3, _ = h.topk(q, 40)
         assert i3.shape == (4, 40)
-        cbs = [cb for _, cb in h._prepared.values()]
-        assert cbs[0] is cbs[1]
+        (cp, _), = h._prepared.values()
+        assert cp is h._device
 
     def test_update_duplicate_indices_rejected(self):
         c = np.eye(8, dtype=np.float32)
@@ -1420,16 +1318,16 @@ class TestInt4Storage:
         i0, _ = pmt.topk(q, c, 10)
         rec = np.mean([len(set(i1[r]) & set(i0[r]))/10 for r in range(30)])
         assert rec > 0.7, rec
-        # 128 < k <= 1024 stays fused on the int4 codes (big-k gstack;
-        # near-tie index order may swap within the packed-bit truncation)
+        # large k stays on the int4 codes (the hi|lo query split differs
+        # from the dense f32 product in the last bits, so near-ties may
+        # swap)
         i2, _ = h.topk(q, 200)
         i3, _ = pmt.topk(q, self._dequant(c), 200)
         assert (i2 == i3).mean() > 0.97
-        # k past the fused ceiling: the dense fallback ranks the
-        # dequantized values bit-deterministically
-        i4, _ = h.topk(q, 1100)
-        i5, _ = pmt.topk(q, self._dequant(c), 1100)
-        np.testing.assert_array_equal(i4, i5)
+        i4, v4 = h.topk(q, 1100)
+        i5, v5 = pmt.topk(q, self._dequant(c), 1100)
+        assert (i4 == i5).mean() > 0.97
+        np.testing.assert_allclose(v4, v5, rtol=1e-4, atol=1e-4)
         out = h.matmul(q[:3])
         np.testing.assert_allclose(out, q[:3] @ self._dequant(c).T,
                                    rtol=1e-4, atol=1e-4)

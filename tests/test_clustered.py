@@ -102,7 +102,7 @@ def test_resolve_probe():
 
 
 # ---------------------------------------------------------------------------
-# kernel probed path (tiles= on fused_topk_prepared)
+# probed scan (tiles= on fused_topk_prepared)
 # ---------------------------------------------------------------------------
 
 
@@ -111,11 +111,11 @@ class TestProbedKernel:
         import jax.numpy as jnp
 
         from polars_matmul_tpu.kernels.fused_topk import (
-            corpus_tile_rows, prepare_corpus, query_tile_rows)
+            prepare_corpus, query_block_rows)
 
-        tn = corpus_tile_rows(q.shape[1], cfg, 5)
-        tm = query_tile_rows(q.shape[0], q.shape[1], cfg, 5)
-        cp, cbp = prepare_corpus(jnp.asarray(c), metric, tn=tn,
+        tn = cfg.block_n
+        tm = query_block_rows(q.shape[0], cfg)
+        cp, cbp = prepare_corpus(jnp.asarray(c), metric,
                                  precision=cfg.precision)
         return cp, cbp, tn, tm
 
@@ -126,20 +126,13 @@ class TestProbedKernel:
         q = rng.standard_normal((20, 32)).astype(np.float32)
         c = rng.standard_normal((1000, 32)).astype(np.float32)
         cp, cbp, tn, tm = self._prep(q, c)
-        n_tiles = cbp.shape[1] // tn
+        n_tiles = -(-cbp.shape[1] // tn)
         qb = -(-20 // tm)
         tiles = np.tile(np.arange(n_tiles, dtype=np.int32), (qb, 1))
-        # Pin one selection for BOTH paths: auto resolves the dense scan
-        # to gpop (u-packed, <= 127-ulp score truncation) but the probed
-        # path to bucket (exact values), which would turn this
-        # bit-equality check into a truncation comparison.  The property
-        # under test is the tiles= mechanism, not selection identity.
-        cfg = CFG.with_updates(selection="extract")
         v1, i1 = fused_topk_prepared(q, cp, cbp, 5, "cosine", tn=tn,
-                                     config=cfg, interpret=True,
-                                     tiles=tiles)
+                                     config=CFG, tiles=tiles)
         v0, i0 = fused_topk_prepared(q, cp, cbp, 5, "cosine", tn=tn,
-                                     config=cfg, interpret=True)
+                                     config=CFG)
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i0))
         np.testing.assert_array_equal(np.asarray(v1), np.asarray(v0))
 
@@ -153,7 +146,7 @@ class TestProbedKernel:
         qb = -(-20 // tm)
         tiles = np.tile(np.array([0, 3], np.int32), (qb, 1))
         v, i = fused_topk_prepared(q, cp, cbp, 5, "cosine", tn=tn,
-                                   config=CFG, interpret=True, tiles=tiles)
+                                   config=CFG, tiles=tiles)
         rows = np.r_[0:tn, 3 * tn:4 * tn]
         rows = rows[rows < 1000]
         qq = q / np.linalg.norm(q, axis=1, keepdims=True)
@@ -173,7 +166,7 @@ class TestProbedKernel:
         tiles = np.tile(np.array([2, 3], np.int32), (qb, 1))
         tiles[0] = [0, 1]
         _, i = fused_topk_prepared(q, cp, cbp, 5, "cosine", tn=tn,
-                                   config=CFG, interpret=True, tiles=tiles)
+                                   config=CFG, tiles=tiles)
         i = np.asarray(i)
         assert i[:tm].max() < 2 * tn
         assert i[tm:].min() >= 2 * tn
@@ -185,11 +178,11 @@ class TestProbedKernel:
         q = rng.standard_normal((8, 32)).astype(np.float32)
         c = rng.standard_normal((300, 32)).astype(np.float32)
         cp, cbp, tn, tm = self._prep(q, c)
-        n_tiles = cbp.shape[1] // tn
+        n_tiles = -(-cbp.shape[1] // tn)
         tiles = np.zeros((1, n_tiles + 1), np.int32)
         with pytest.raises(ValueError, match="tiles"):
             fused_topk_prepared(q, cp, cbp, 5, "cosine", tn=tn,
-                                config=CFG, interpret=True, tiles=tiles)
+                                config=CFG, tiles=tiles)
 
     def test_wrong_block_count_rejected(self):
         from polars_matmul_tpu.kernels.fused_topk import fused_topk_prepared
@@ -201,7 +194,7 @@ class TestProbedKernel:
         tiles = np.zeros((99, 2), np.int32)
         with pytest.raises(ValueError, match="query blocks"):
             fused_topk_prepared(q, cp, cbp, 5, "cosine", tn=tn,
-                                config=CFG, interpret=True, tiles=tiles)
+                                config=CFG, tiles=tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -611,15 +604,13 @@ class TestClusteredMesh:
             cm.add(np.ones((2, 17), np.float32))
 
     def test_mesh_probed_large_k_uses_layout_tiles(self, mesh8):
-        """k > 16 flips the kernel's k-aware tile geometry (auto tiles:
-        bn 2048 -> 4096); the probed mesh path must pin the LAYOUT's
-        tile height instead — tile ids address the corpus at layout
-        granularity, and the kernel's own default read past the shard
-        (or raised) at k=32."""
+        """The probed mesh path must address each shard at the LAYOUT's
+        tile height — tile ids address the corpus at layout granularity,
+        and any other tiling reads past the shard or pairs indices with
+        the wrong rows."""
         rng = np.random.default_rng(104)
         q, c = blobs(rng, 36864, 8, 32, n_centers=18)
-        cfg = SearchConfig(k_pad=64)  # default auto tiles, k=32 capacity
-        cm = pmt.ClusteredCorpus(c, clusters=18, mesh=mesh8, config=cfg)
+        cm = pmt.ClusteredCorpus(c, clusters=18, mesh=mesh8)
         i, v = cm.topk(q, 32, "dot", probe=0.5)
         assert i.shape == (8, 32)
         real = i != np.iinfo(np.int32).max
@@ -632,20 +623,24 @@ class TestClusteredMesh:
             # the (index, score) pairing immediately
             np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-2)
 
-    def test_large_k_fallback_on_mesh(self, mesh8):
-        """k past the fused ceiling diverts to the exhaustive XLA
-        fallback, which ignores probe.  On a mesh the gate is the
-        SHARD-local k (min(k + pad, shard rows)), so shards must exceed
-        1024 rows for the fallback to fire — any smaller k (even above
-        k_pad, since round 4) stays fused and genuinely honors probe=."""
+    def test_large_k_on_mesh_honors_probe(self, mesh8):
+        """k above the shard's tile budget: the exhaustive mesh scan
+        equals Corpus, and probe= is honored (never ignored) — one tile
+        per shard cannot fill k=1100, so the tail comes back as
+        sentinels."""
         rng = np.random.default_rng(46)
         q, c = blobs(rng, 9600, 6, 16)
-        cfg = SearchConfig(block_q=8, block_n=128, k_pad=16)
+        cfg = SearchConfig(block_q=8, block_n=128)
         cm = pmt.ClusteredCorpus(c, clusters=4, mesh=mesh8, config=cfg)
         ref = pmt.Corpus(c, config=cfg)
-        mi, mv = cm.topk(q, 1100, "cosine", probe=1)  # probe ignored
+        ei, ev = cm.topk(q, 1100, "cosine", probe=None)
         ri, rv = ref.topk(q, 1100, "cosine")
-        np.testing.assert_array_equal(mi, ri)
+        np.testing.assert_array_equal(ei, ri)
+        mi, mv = cm.topk(q, 1100, "cosine", probe=1)
+        big = np.iinfo(np.int32).max
+        real = mi != big
+        assert (real.sum(axis=1) <= 8 * 128).all()
+        assert np.isneginf(mv[~real]).all()
 
 
 class TestClusteredUpdate:

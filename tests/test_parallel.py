@@ -285,11 +285,8 @@ class TestShardedBf16Storage:
         assert mask[i.reshape(-1)].all()
 
     def test_fallback_path_upcasts_per_shard(self, mesh8):
-        """k_local > max_fused_k diverts to the non-prepared path, which
-        must upcast the bf16 shards locally before the XLA fallback.
-        The shard-local k is what gates (min(k + pad, ns)), so the shard
-        must exceed 1024 rows for the fallback to fire at all — smaller
-        k (even > 128) now stays fused with an auto-raised carry."""
+        """Large shard-local k (1100) on bf16 shards is served by the
+        bf16c scan from the stored shards and ranks the bf16 values."""
         import ml_dtypes
 
         rng = np.random.default_rng(93)
@@ -694,15 +691,12 @@ def test_northstar_scale_1m_mesh(mesh8):
     """1M rows x 768d, k=100, int8 shards on the 8-device mesh — the
     north-star scaling config's virtual-mesh correctness run (VERDICT r02
     item 3; the real 10M-row single-chip numbers live in
-    tools/exp_northstar.py / ARCHITECTURE.md).  The fused kernel would run
-    in interpret mode on the CPU backend at this size, so the XLA
-    per-shard path is forced (use_pallas=False): under test is the
-    distributed machinery at real scale — host quantization, int8 shard
-    placement, per-shard dequantize + local top-k with global index
-    offsets, and the candidate merge."""
+    chip_smoke.py).  Under test is the distributed machinery at real
+    scale — host quantization, int8 shard placement, the per-shard scan
+    over the codes with global index offsets, and the candidate merge."""
     rng = np.random.default_rng(4242)
     n, dim, m, k = 1_000_000, 768, 8, 100
-    # Blob structure like tools/exp_northstar.py: real neighbor structure,
+    # Blob structure: real neighbor structure,
     # non-uniform per-shard hit counts (iid noise would spread winners
     # evenly and never stress the merge with lopsided shards).  The noise
     # block is tiled 8x to keep single-core generation under a minute;
@@ -722,11 +716,10 @@ def test_northstar_scale_1m_mesh(mesh8):
     codes, scales = _quantize_rows_np(c)
     cdeq = codes.astype(np.float32) * scales[:, None]
 
-    cfg = pmt.SearchConfig(use_pallas=False)
-    h = pmt.Corpus(c, storage="int8", mesh=mesh8, config=cfg)
+    h = pmt.Corpus(c, storage="int8", mesh=mesh8)
     del c
     i1, v1 = h.topk(q, k, "cosine")
-    i0, v0 = pmt.topk(q, cdeq, k, "cosine", config=cfg)
+    i0, v0 = pmt.topk(q, cdeq, k, "cosine")
     assert i1.shape == (m, k)
     # f32 accumulation-order differences across shard boundaries can swap
     # near-ties; demand near-total index agreement and tight scores.

@@ -3,8 +3,8 @@
 Thresholds are deliberately loose (reference uses 12x headroom for CI
 variability, test_performance.py:73); these run on the CPU backend in the
 normal test environment, so they gate against pathological regressions
-(accidental O(n^2) host loops, per-row allocation), not kernel speed —
-bench.py measures the TPU numbers.
+(accidental O(n^2) host loops, per-row allocation), not device speed —
+bench.py and chip_smoke.py measure on the GPU.
 """
 
 import time

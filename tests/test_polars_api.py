@@ -1,8 +1,8 @@
 """Polars `.pmm` expression-namespace tests.
 
 Direct port of the reference's integration suite
-(reference tests/test_polars_matmul.py, 33 tests / 6 classes) against the
-TPU-native implementation.  Skipped wholesale when polars is not installed
+(reference tests/test_polars_matmul.py, 33 tests / 6 classes) against this
+implementation.  Skipped wholesale when polars is not installed
 in the environment (the Arrow-level equivalents run in test_api.py).
 """
 
